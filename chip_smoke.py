@@ -1,0 +1,440 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`tum_control_tpu_torch`) on one GPU.
+
+    python3 chip_smoke.py            # from the repository root, one CUDA card
+
+Phases (any failure raises and the script exits non-zero):
+  1. prints the card (`nvidia-smi` name and power limit) and the TF32
+     setting, and builds the five hand-written kernels from
+     tum_control_tpu_torch/csrc with nvcc for sm_90a;
+  2. runs each kernel (K1-K5) at the nominal closed loop's shapes (B = 128
+     scenarios, N = 38, nx = 8, nu = 2, nz = 76, 78 general rows) on inputs
+     from a seeded numpy generator, holds it against its plain PyTorch
+     version on the same inputs, and times kernel, plain version and (for
+     K3, K5) the PyTorch library call with CUDA events;
+  3. drives the main path: `build_simulation` on cuda in float32 with
+     `batched_scenarios` at B = 128, a settle run and a timed run, with the
+     launch counters reset just before and read just after; checks solver
+     health, finite logs, and prints solves/s and |lat_dev| p50/p99; takes a
+     short torch.profiler window of the same loop;
+  4. reruns each of the first CPU_STEPS steps on the CPU (plain versions)
+     in float32 and float64 from the card's own carry at that step and holds
+     the card's inputs simU to both; prints how far a free float32 run from
+     the same initial states drifts;
+  5. prints one {"kernels": [...]} line and, last, the device line.
+
+Without a CUDA device, or without the package beside it, it exits non-zero
+and prints no result.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(REPO, "build", "chip_smoke")
+
+# H100 SXM data sheet: HBM bandwidth, float32 outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+
+B, N, NX, NU = 128, 38, 8, 2
+SETTLE, STEPS, CPU_STEPS = 100, 300, 20   # settle steps, timed steps, steps rerun on the CPU
+NZ, NCG = N * NU, (N + 1) * 2   # 76 condensed controls, 78 general rows (nh=1 + delta_f per node)
+NC = NCG + NZ
+
+# tolerance of each kernel against its plain version on the same inputs, held
+# for every output on its own (for K1 every column of J) as
+# max |kernel - plain| <= TOL * max |plain|. float32 on both sides in
+# different operation orders; each plain version's float32 result lies within
+# 1e-6 of its float64 result relative to that output's max (K4: 3e-6, its
+# directions go through a factor of cond ~1e3), so TOL leaves 10-30x of room
+TOL = {"linearize": 2e-5, "condense": 2e-5, "cholesky": 2e-5, "chol_solve": 2e-5,
+       "ipm_iteration": 1e-4}
+# the card's applied inputs simU against the CPU's float32 and float64 step
+# from the same carry: max |card - cpu| <= TOL_U * max |simU f64| per input.
+# One float32 step lies within 3e-4 of the float64 step on this scale
+TOL_U = 2e-3
+CARRY = ("w", "Gw", "su", "sl", "pu", "pl", "lam_u", "lam_l", "mu_u", "mu_l")
+REPLACES = {
+    "linearize": "tum_control_tpu/ops/pallas_kernels/linearize.py:41",
+    "condense": "tum_control_tpu/ops/pallas_kernels/condense.py:67",
+    "cholesky": "tum_control_tpu/ops/pallas_kernels/chol.py:90",
+    "ipm_iteration": "tum_control_tpu/ops/pallas_kernels/ipm_iter.py:173",
+    "chol_solve": "tum_control_tpu/ops/pallas_kernels/chol.py:139",
+}
+SOURCE = {
+    "linearize": "tum_control_tpu_torch/csrc/linearize.cu",
+    "condense": "tum_control_tpu_torch/csrc/condense.cu",
+    "cholesky": "tum_control_tpu_torch/csrc/chol.cu",
+    "ipm_iteration": "tum_control_tpu_torch/csrc/ipm_iter.cu",
+    "chol_solve": "tum_control_tpu_torch/csrc/chol.cu",
+}
+
+
+def check(cond, msg):
+    if not cond:
+        raise AssertionError(msg)
+
+
+def say(*a):
+    print(*a, flush=True)
+
+
+def time_cuda(fn, runs, warmup=2):
+    """Median milliseconds of `fn` between CUDA events, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def bound(n_bytes, n_ops):
+    """Least time (ms) for the work: the larger of bytes over the HBM rate
+    and float32 operations over the fp32 peak."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def compare(name, outputs):
+    """Holds each (label, kernel, plain) output to TOL[name] * max|plain|.
+    Returns the max abs error over all outputs and each output's max abs
+    error relative to its own max |plain|."""
+    err, rel = 0.0, {}
+    for label, g, r in outputs:
+        check(g.shape == r.shape, f"{name}.{label}: shape {tuple(g.shape)} != {tuple(r.shape)}")
+        check(bool(torch.isfinite(g).all()), f"{name}.{label}: non-finite kernel output")
+        e = float((g.double() - r.double()).abs().max())
+        scale = float(r.abs().max())
+        check(e <= TOL[name] * scale,
+              f"{name}.{label}: max abs err {e:.3e} > {TOL[name]:.0e} * {scale:.3e}")
+        err, rel[label] = max(err, e), e / scale if scale > 0 else 0.0
+    return err, rel
+
+
+def random_qp(rng, device):
+    """A soft QP at the main-path shapes, drawn as tests/test_ipm_fused.py
+    draws its problems (mixed one-sided, two-sided and hard rows), and the
+    IPM's cold-start carry for it."""
+    f32 = np.float32
+    G = rng.standard_normal((B, NCG, NZ)).astype(f32)
+    A = rng.standard_normal((B, NZ, NZ + 4)).astype(f32)
+    H0 = (np.einsum("bij,bkj->bik", A, A) / NZ + 2.0 * np.eye(NZ)).astype(f32)
+    g0 = rng.standard_normal((B, NZ)).astype(f32)
+    c0 = rng.standard_normal((B, NC)).astype(f32)
+    lb = (c0 - np.abs(rng.standard_normal((B, NC))) - 0.1).astype(f32)
+    ub = (c0 + np.abs(rng.standard_normal((B, NC))) + 0.1).astype(f32)
+    ub[:, ::7] = 1e13
+    lb[:, 1::5] = -1e13
+    z1 = (np.abs(rng.standard_normal((B, NC))) * 5 + 0.5).astype(f32)
+    z2 = (np.abs(rng.standard_normal((B, NC))) * 5 + 0.5).astype(f32)
+    z2[:, 2::6] = 1e7
+    t = lambda a: torch.tensor(a, device=device)
+    return tuple(t(a) for a in (H0, g0, G, c0, lb, ub, z1, z2))
+
+
+def kernel_phase(dev):
+    from tum_control_tpu_torch.api import build_controller
+    from tum_control_tpu_torch.config import MPCConfig, SimConfig
+    from tum_control_tpu_torch.ops.kernels.chol import (
+        chol_solve_cuda, chol_solve_ref, cholesky_cuda, cholesky_ref,
+    )
+    from tum_control_tpu_torch.ops.kernels.condense import condense_cuda, condense_ref
+    from tum_control_tpu_torch.ops.kernels.ipm_iter import (
+        fused_iteration_cuda, iteration_ref, masks_of, sigma_of,
+    )
+    from tum_control_tpu_torch.ops.kernels.linearize import linearize_cuda, linearize_ref
+    from tum_control_tpu_torch.parallel.mesh import batched_scenarios
+    from tum_control_tpu_torch.track.trajectory import load_ref_trajectory
+
+    rng = np.random.default_rng(0)
+    results = {}
+
+    def record(name, err_rel, ms, plain_ms, bytes_, ops, library_ms=None):
+        err, rel = err_rel
+        b_ms, b_by = bound(bytes_, ops)
+        results[name] = dict(name=name, route="cuda", source=SOURCE[name],
+                             replaces=REPLACES[name], launches=0, max_abs_err=err, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=library_ms, max_rel_err=rel)
+        lib = "null" if library_ms is None else f"{library_ms:.4f}"
+        worst = max(rel, key=rel.get)
+        say(f"[{name}] max abs err {err:.3e}; worst output {worst}: {rel[worst]:.3e} of its "
+            f"max|plain| (tol {TOL[name]:.0e}) | kernel {ms:.4f} ms"
+            f" | plain {plain_ms:.3f} ms | library {lib} ms | bound {b_ms:.5f} ms ({b_by})")
+
+    # K1: linearize at curvature-consistent states spread along the lap
+    ctrl = build_controller(MPCConfig(), SimConfig(), device=dev)
+    lr = ctrl.engine.funcs.lin_rollout
+    traj = load_ref_trajectory(os.path.join(SimConfig().trajectory_path,
+                                            SimConfig().ref_traj_file), torch.float64)
+    x0, _ = batched_scenarios(traj, B, dtype=torch.float64)
+    X = x0.numpy()[:, None, :] + rng.normal(0, 1, (B, N, NX)) * [0.5, 0.5, 0.05, 1, 0.1, 0.05,
+                                                                   0.02, 0.5]
+    U = rng.normal(0, 1, (B, N, NU)) * [1.0, 0.1]
+    XU = torch.tensor(np.concatenate([X, U], axis=2), dtype=torch.float32, device=dev)
+    F, J = linearize_cuda(XU, lr.prm, lr.n_sub)
+    Fp, Jp = linearize_ref(XU, lr.step, NX)
+    err = compare("linearize", [("F", F, Fp)] + [(f"J[..., {c}]", J[..., c], Jp[..., c])
+                                                 for c in range(NX + NU)])
+    # operations per element: 12 model evaluations of ~112 primitive
+    # operations, and the 10 input directions' tangents at ~2 operations
+    # per primitive each
+    ops = B * N * 12 * 112 * (1 + 2 * 10)
+    record("linearize", err, time_cuda(lambda: linearize_cuda(XU, lr.prm, lr.n_sub), 50),
+           time_cuda(lambda: linearize_ref(XU, lr.step, NX), 3, warmup=1),
+           nbytes(XU, F, J), ops)
+
+    # K2: condense the sensitivities K1 just produced
+    A_ = J[..., :NX].contiguous()
+    B_ = J[..., NX:].contiguous()
+    xi = torch.tensor(rng.normal(0, 0.01, (B, N, NX)), dtype=torch.float32, device=dev)
+    d0 = torch.tensor(rng.normal(0, 0.1, (B, NX)), dtype=torch.float32, device=dev)
+    e, Gam = condense_cuda(A_, B_, xi, d0)
+    ep, Gamp = condense_ref(A_, B_, xi, d0)
+    err = compare("condense", [("e", e, ep), ("Gamma", Gam, Gamp)])
+    # A_k Gam_k needs nx^2 (k nu) FMAs (columns past k nu are zero), e: nx^2
+    ops = B * sum(2 * NX * NX * (k * NU + 1) + 2 * NX * NU for k in range(N))
+    record("condense", err, time_cuda(lambda: condense_cuda(A_, B_, xi, d0), 50),
+           time_cuda(lambda: condense_ref(A_, B_, xi, d0), 5), nbytes(A_, B_, xi, d0, e, Gam), ops)
+
+    # K3, K5, K4 on one random QP's first IPM iteration
+    H0, g0, G, c0, lb, ub, z1, z2 = random_qp(rng, dev)
+    act_u, act_l, s_u, s_l = masks_of(lb, ub, z2)
+    one, zero = torch.ones_like(c0), torch.zeros_like(c0)
+    su, sl = torch.where(s_u, one, zero), torch.where(s_l, one, zero)
+    pu = torch.where(act_u, torch.clamp(ub + su - c0, min=1.0), one)
+    pl = torch.where(act_l, torch.clamp(c0 + sl - lb, min=1.0), one)
+    lam_u, lam_l = torch.where(act_u, one, zero), torch.where(act_l, one, zero)
+    mu_u, mu_l = torch.where(s_u, one, zero), torch.where(s_l, one, zero)
+    nt = (act_u.sum(1) + act_l.sum(1) + s_u.sum(1) + s_l.sum(1)).to(torch.float32)
+    carry = (torch.zeros_like(g0), torch.zeros_like(c0), su, sl, pu, pl, lam_u, lam_l, mu_u, mu_l)
+    sig = sigma_of(su, sl, pu, pl, lam_u, lam_l, mu_u, mu_l, z1, z2, act_u, act_l, s_u, s_l)
+    H = (H0 + torch.matmul(G.transpose(1, 2) * sig[:, None, :NCG], G)
+         + torch.diag_embed(sig[:, NCG:] + 1e-11)).contiguous()
+
+    L = cholesky_cuda(H)
+    Lp = cholesky_ref(H)
+    err = compare("cholesky", [("L", L, Lp)])
+    ops = B * (NZ ** 3 / 3 + NZ ** 2)
+    record("cholesky", err, time_cuda(lambda: cholesky_cuda(H), 50),
+           time_cuda(lambda: cholesky_ref(H), 5), nbytes(H, L), ops,
+           library_ms=time_cuda(lambda: torch.linalg.cholesky(H), 50))
+
+    b = torch.tensor(rng.standard_normal((B, NZ)), dtype=torch.float32, device=dev)
+    x = chol_solve_cuda(L, b)
+    xp = chol_solve_ref(L, b)
+    err = compare("chol_solve", [("x", x, xp)])
+    record("chol_solve", err, time_cuda(lambda: chol_solve_cuda(L, b), 50),
+           time_cuda(lambda: chol_solve_ref(L, b), 5), nbytes(L, b, x), B * 2 * NZ * NZ,
+           library_ms=time_cuda(lambda: torch.cholesky_solve(b[..., None], L), 50))
+
+    lam_d = lam_u - lam_l
+    rw = (torch.matmul(H0, carry[0][..., None])[..., 0] + g0
+          + torch.matmul(lam_d[:, None, :NCG], G)[:, 0] + lam_d[:, NCG:]).contiguous()
+    args = (L, G, rw, c0, lb, ub, z1, z2, nt)
+    kc, ksig, kunc = fused_iteration_cuda(*args, carry)
+    pc, psig, punc = iteration_ref(*args, carry)
+    err = compare("ipm_iteration", list(zip(CARRY + ("sigma",), kc + (ksig,), pc + (psig,))))
+    check(torch.equal(kunc, punc), "ipm_iteration: unconverged flags differ")
+    # two directions of con_tmul + fwd/bwd substitution + con_mul, plus ~60
+    # elementwise operations per constraint row
+    ops = B * (2 * (4 * NCG * NZ + 2 * NZ * NZ) + 60 * NC)
+    record("ipm_iteration", err, time_cuda(lambda: fused_iteration_cuda(*args, carry), 50),
+           time_cuda(lambda: iteration_ref(*args, carry), 5),
+           nbytes(*args, *carry, *kc, ksig, kunc), ops)
+    return results
+
+
+def move_carry(carry, device, dtype):
+    """A copy of a SimCarry on `device` with its floating tensors in `dtype`
+    and a fresh disturbance generator (the smoke configuration draws none)."""
+    from tum_control_tpu_torch.sim.closed_loop import make_generator
+
+    def mv(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(device, dtype if v.is_floating_point() else v.dtype, copy=True)
+        if isinstance(v, tuple) and hasattr(v, "_fields"):
+            return type(v)(*(mv(a) for a in v))
+        return v
+    return mv(carry)._replace(key=make_generator(0, device))
+
+
+def loop_phase(dev):
+    from tum_control_tpu_torch.api import build_simulation
+    from tum_control_tpu_torch.config import MPCConfig, SimConfig
+    from tum_control_tpu_torch.ops.kernels import build
+    from tum_control_tpu_torch.parallel.mesh import batched_scenarios
+
+    sim, _, _, traj, _ = build_simulation(SimConfig(sim_mode=0), MPCConfig(), device=dev,
+                                          dtype=torch.float32)
+    x0m, x0s = batched_scenarios(traj, B, dtype=torch.float32, device=dev)
+    carry = sim.init_carry(x0m, x0s, key=0)
+    carry0 = move_carry(carry, "cpu", torch.float32)
+
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry, log_settle = sim.run_from(carry, SETTLE)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    carry, log = sim.run_from(carry, STEPS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(build.LAUNCHES)
+    say(f"[loop] launches over {SETTLE + STEPS} steps: {json.dumps(launches)}")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the main path")
+
+    for lg in (log_settle, log):
+        for f, v in lg._asdict().items():
+            if v.is_floating_point():
+                check(bool(torch.isfinite(v).all()), f"non-finite values in SimLog.{f}")
+    status = log.simSolverDebug[..., 4]
+    ok = float((status == 0).float().mean())
+    lat = log.lat_dev.abs().flatten().double().cpu()
+    sps = B * STEPS / (t2 - t1)
+    p50, p99 = float(torch.quantile(lat, 0.5)), float(torch.quantile(lat, 0.99))
+    say(f"[loop] B={B} settle {SETTLE} steps {t1 - t0:.3f} s, timed {STEPS} steps "
+        f"{t2 - t1:.3f} s: {sps:.1f} solves/s, {(t2 - t1) / STEPS * 1e3:.3f} ms/step")
+    say(f"[loop] solver ok fraction {ok:.5f}; |lat_dev| p50 {p50:.4f} m, p99 {p99:.4f} m")
+    check(ok >= 0.99, f"solver ok fraction {ok} < 0.99")
+
+    # a short profiled window of the same loop: device time by kernel and
+    # the device's busy share of the window
+    from torch.profiler import ProfilerActivity, profile
+    n_prof = 10
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t3 = time.perf_counter()
+        sim.run_from(carry, n_prof)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+    dev_time = lambda r: getattr(r, "self_device_time_total", 0.0) or getattr(
+        r, "self_cuda_time_total", 0.0)
+    kernels = [r for r in prof.key_averages() if str(r.device_type).endswith("CUDA")]
+    dev_us = sum(dev_time(r) for r in kernels)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_profile.txt"), "w") as fh:
+        fh.write("\n".join(f"{dev_time(r):12.1f} us {r.count:7d}  {r.key}"
+                           for r in sorted(kernels, key=lambda r: -dev_time(r))))
+    wall_us = (t4 - t3) * 1e6
+    step_us = (t2 - t1) / STEPS * 1e6
+    if dev_us > 0:
+        say(f"[profile] {n_prof} traced steps: {sum(r.count for r in kernels) / n_prof:.0f} "
+            f"kernels/step, device busy {dev_us / n_prof:.1f} us/step; traced wall "
+            f"{wall_us / n_prof:.1f} us/step, untraced {step_us:.1f} us/step -> device idle "
+            f"share {1 - dev_us / n_prof / step_us:.4f} of the untraced step")
+        for r in sorted(kernels, key=lambda r: -dev_time(r))[:10]:
+            say(f"[profile]   {dev_time(r) / n_prof:9.1f} us/step {r.count / n_prof:7.1f}"
+                f" launches/step  {r.key[:80]}")
+    else:
+        say("[profile] no device time in the trace: device busy share not measured")
+    return launches, sim, carry0, log_settle
+
+
+def cpu_phase(sim, carry0, log_settle):
+    """Each of the first CPU_STEPS steps of the card's run again on the CPU,
+    where the port takes its plain versions, in float32 and float64 from the
+    card's own carry at that step: the card's simU is held to both within
+    TOL_U, in every scenario and step.
+
+    A free run from the same initial states is no such yardstick: within 20
+    steps a few scenarios of two float32 runs drift apart by O(1) in jerk
+    (a 3-iteration IPM per step amplifies roundoff along the trajectory), so
+    that drift is printed and not held."""
+    from tum_control_tpu_torch.api import build_simulation
+    from tum_control_tpu_torch.config import MPCConfig, SimConfig
+
+    t0 = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    cpu = {dt: build_simulation(SimConfig(sim_mode=0), MPCConfig(), device="cpu", dtype=dt)[0]
+           for dt in (f32, f64)}
+    carry = move_carry(carry0, log_settle.simU.device, f32)
+    zero = torch.zeros_like(carry.x_sim)
+    U = {"card": [], f32: [], f64: []}
+    for _ in range(CPU_STEPS):
+        here = move_carry(carry, "cpu", f32)
+        carry, lg = sim.step(carry, zero, zero)
+        U["card"].append(lg.simU.double().cpu())
+        for dt in (f32, f64):
+            z = torch.zeros_like(here.x_sim, dtype=dt)
+            U[dt].append(cpu[dt].step(move_carry(here, "cpu", dt), z, z)[1].simU.double())
+    U = {k: torch.stack(v, dim=1) for k, v in U.items()}   # (B, CPU_STEPS, nu)
+    scale = U[f64].abs().amax(dim=(0, 1))
+    say(f"[cpu] {CPU_STEPS} steps x {B} scenarios, each from the card's carry, on the CPU "
+        f"in {time.perf_counter() - t0:.1f} s; max |simU f64| per input {scale.tolist()}")
+    for label, a, b in (("card - cpu f32", "card", f32), ("card - cpu f64", "card", f64),
+                        ("cpu f32 - cpu f64", f32, f64)):
+        d = (U[a] - U[b]).abs()
+        worst = d.amax(dim=(0, 1))
+        s, k = divmod(int(d.amax(dim=2).argmax()), CPU_STEPS)
+        say(f"[cpu] max |simU {label}| per input {worst.tolist()}, "
+            f"{(worst / scale).tolist()} of max |simU| (tol {TOL_U:.0e}; worst at scenario "
+            f"{s}, step {k})")
+        check(bool((worst <= TOL_U * scale).all()), f"max |simU {label}| beyond the tolerance")
+
+    _, lg = cpu[f32].run_from(move_carry(carry0, "cpu", f32), CPU_STEPS)
+    drift = (log_settle.simU[:, :CPU_STEPS].double().cpu() - lg.simU.double()).abs()
+    say(f"[cpu] free float32 run from the same initial states: max |simU card - cpu| "
+        f"{float(drift.max()):.3e} (step 0: {float(drift[:, 0].max()):.3e}); "
+        f"{int((drift.amax(dim=(1, 2)) > 1e-2).sum())} of {B} scenarios beyond 1e-2")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("no CUDA device: chip_smoke.py runs on a GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from tum_control_tpu_torch.ops.kernels import build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    say(smi.splitlines()[0])
+    dev = torch.device("cuda", 0)
+    say(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmuls are enabled")
+
+    t0 = time.perf_counter()
+    logs = build.build_all()
+    say(f"[build] {len(logs)} libraries built in {time.perf_counter() - t0:.1f} s")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                say(f"[build] {name}: {line.strip()}")
+
+    results = kernel_phase(dev)
+    launches, sim, carry0, log_settle = loop_phase(dev)
+    cpu_phase(sim, carry0, log_settle)
+    check(set(results) == set(launches), "kernel list and launch counters differ")
+    for name, n in launches.items():
+        results[name]["launches"] = n
+    say(json.dumps({"kernels": [results[k] for k in launches]}))
+    say(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

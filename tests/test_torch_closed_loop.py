@@ -1,0 +1,101 @@
+"""The port's nominal-NMPC closed loop against the JAX package, step by
+step, on the CPU in float64; the port's import isolation from JAX.
+
+The 200-step Monteblanco drive is the end-to-end check of the slice: the
+two packages agree to ~1e-14 at the first steps, and the fixed-iteration
+IPM amplifies that roundoff to ~4e-6 over 200 steps (measured), so states
+and inputs are held to atol 1e-4 and the solver statuses must be identical.
+"""
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from tum_control_tpu.api import build_simulation as j_build_simulation
+from tum_control_tpu.config import MPCConfig as JMPC, SimConfig as JSim
+from tum_control_tpu.parallel.mesh import batched_scenarios as j_batched
+from tum_control_tpu_torch.api import build_simulation
+from tum_control_tpu_torch.config import MPCConfig, SimConfig
+from tum_control_tpu_torch.parallel.mesh import batched_scenarios
+
+ATOL = 1e-4
+STATE_FIELDS = ("MPC_SimX", "CiLX", "DisturbedX", "simU", "simREF", "lat_dev", "vel_dev",
+                "dist_deriv", "dist_se")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _builds(**sim_kw):
+    jsim, _, _, jtraj, _ = j_build_simulation(JSim(**sim_kw), JMPC())
+    tsim, _, _, ttraj, _ = build_simulation(SimConfig(**sim_kw), MPCConfig(), device="cpu",
+                                            dtype=torch.float64)
+    return jsim, jtraj, tsim, ttraj
+
+
+def _compare_logs(log_t, log_j, atol=ATOL):
+    for f in STATE_FIELDS:
+        np.testing.assert_allclose(getattr(log_t, f).numpy(), np.asarray(getattr(log_j, f)),
+                                   rtol=0, atol=atol, err_msg=f)
+    dbg_t, dbg_j = log_t.simSolverDebug.numpy(), np.asarray(log_j.simSolverDebug)
+    np.testing.assert_array_equal(dbg_t[..., 2:], dbg_j[..., 2:])  # sqp/qp iters, status
+    np.testing.assert_allclose(dbg_t[..., 0], dbg_j[..., 0], rtol=1e-3, atol=atol)  # cost
+    np.testing.assert_array_equal(log_t.wmpc_action.numpy(), np.asarray(log_j.wmpc_action))
+
+
+def test_nominal_closed_loop_200_steps_matches_jax():
+    """The verify drive (Monteblanco, sim_mode 0, 200 steps of 0.02 s) at
+    batch 2 from two curvature-consistent starts along the lap."""
+    n = 200
+    jsim, jtraj, tsim, ttraj = _builds(sim_mode=0, T=n * 0.02)
+    x0m_j, x0s_j = j_batched(jtraj, 2, dtype=jnp.float64)
+    _, log_j = jax.jit(jax.vmap(lambda a, b: jsim.run(a, b, n)))(x0m_j, x0s_j)
+    x0m, x0s = batched_scenarios(ttraj, 2, dtype=torch.float64)
+    carry, log_t = tsim.run(x0m, x0s, n)
+    assert log_t.simU.shape == (2, n, 2)
+    _compare_logs(log_t, log_j)
+    assert (log_t.simSolverDebug[..., 4] == 0).all()
+    assert float(log_t.lat_dev.abs().max()) < 0.5
+    assert torch.isfinite(carry.x_sim).all()
+
+
+def test_port_imports_without_jax_and_needs_cuda_by_default():
+    """The whole package imports with `jax` and `tum_control_tpu` blocked,
+    loads neither, and its entry point raises without a CUDA device unless
+    the caller asks for the CPU."""
+    code = textwrap.dedent("""
+        import importlib, importlib.abc, pkgutil, sys
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                top = name.split(".")[0]
+                if top in ("jax", "jaxlib", "tum_control_tpu"):
+                    raise ImportError("blocked: " + name)
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import tum_control_tpu_torch as pkg
+        for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+            importlib.import_module(m.name)
+        bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tum_control_tpu")]
+        assert not bad, bad
+        from tum_control_tpu_torch.api import build_simulation
+        from tum_control_tpu_torch.config import MPCConfig, SimConfig
+        try:
+            build_simulation(SimConfig(), MPCConfig())
+        except RuntimeError as e:
+            assert "CUDA" in str(e)
+        else:
+            raise AssertionError("build_simulation ran without a CUDA device")
+        build_simulation(SimConfig(), MPCConfig(), device="cpu")
+        print("ISOLATED-OK")
+    """)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "ISOLATED-OK" in out.stdout

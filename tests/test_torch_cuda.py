@@ -1,0 +1,100 @@
+"""The port's CUDA kernels on the card: each wrapper against its plain
+PyTorch version on the same CUDA float32 inputs, the dispatch rule's
+refusals, the launch counters, and a short closed loop.
+
+Marked `cuda`; without a CUDA device every test skips. On a GPU machine:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+
+Tolerances: float32 on both sides in different operation orders, held for
+each output as max |kernel - plain| <= tol * max(1, max |plain|).
+"""
+import numpy as np
+import pytest
+import torch
+
+from tum_control_tpu_torch.api import build_controller, build_simulation
+from tum_control_tpu_torch.config import MPCConfig, SimConfig
+from tum_control_tpu_torch.ops.kernels import build
+from tum_control_tpu_torch.ops.kernels.chol import chol_solve, chol_solve_ref, cholesky, cholesky_ref
+from tum_control_tpu_torch.ops.kernels.condense import condense, condense_ref
+from tum_control_tpu_torch.parallel.mesh import batched_scenarios
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _close(got, ref, tol):
+    scale = max(1.0, float(ref.abs().max()))
+    err = float((got.double() - ref.double()).abs().max())
+    assert err <= tol * scale, (err, scale)
+
+
+def _spd(B, n, seed, dev):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((B, n, n + 4))
+    H = A @ A.transpose(0, 2, 1) / n + 0.5 * np.eye(n)
+    return torch.tensor(H, dtype=torch.float32, device=dev)
+
+
+@pytest.mark.parametrize("B,n", [(3, 12), (130, 76)])
+def test_cholesky_and_solve_kernels(dev, B, n):
+    H = _spd(B, n, 1, dev)
+    b = torch.randn(B, n, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    build.reset_launches()
+    L = cholesky(H)
+    x = chol_solve(L, b)
+    assert build.LAUNCHES["cholesky"] == 1 and build.LAUNCHES["chol_solve"] == 1
+    _close(L, cholesky_ref(H), 1e-4)
+    _close(x, chol_solve_ref(L, b), 1e-4)
+    assert torch.count_nonzero(torch.triu(L, 1)) == 0
+
+
+def test_linearize_and_condense_kernels(dev):
+    ctrl = build_controller(MPCConfig(), SimConfig(), device=dev)
+    lr = ctrl.engine.funcs.lin_rollout
+    rng = np.random.default_rng(2)
+    XU = np.concatenate([rng.uniform(-50, 50, (4, 38, 3)), rng.uniform(0, 30, (4, 38, 1)),
+                         rng.normal(0, 0.3, (4, 38, 6))], axis=2)
+    XU[0, :3, 3] = 0.0  # the low-speed guard
+    XU = torch.tensor(XU, dtype=torch.float32, device=dev)
+    F, J = lr(XU)
+    from tum_control_tpu_torch.ops.kernels.linearize import linearize_ref
+    Fp, Jp = linearize_ref(XU, lr.step, 8)
+    _close(F, Fp, 1e-4)
+    _close(J, Jp, 1e-4)
+    A, Bm = J[..., :8].contiguous(), J[..., 8:].contiguous()
+    xi = torch.randn(4, 38, 8, device=dev) * 0.01
+    d0 = torch.randn(4, 8, device=dev)
+    e, G = condense(A, Bm, xi, d0)
+    ep, Gp = condense_ref(A, Bm, xi, d0)
+    _close(e, ep, 1e-4)
+    _close(G, Gp, 1e-4)
+
+
+def test_dispatch_refuses_what_the_kernels_do_not_take(dev):
+    H = _spd(2, 8, 3, dev)
+    with pytest.raises(TypeError):
+        cholesky(H.double())
+    with pytest.raises(ValueError):
+        cholesky(H.transpose(1, 2))
+    with pytest.raises(ValueError):
+        chol_solve(H, torch.zeros(2, 8))  # one tensor on the CPU
+
+
+def test_short_closed_loop_goes_through_every_kernel(dev):
+    sim, _, _, traj, _ = build_simulation(SimConfig(sim_mode=0), MPCConfig())
+    x0m, x0s = batched_scenarios(traj, 4, dtype=torch.float32, device=dev)
+    build.reset_launches()
+    carry, log = sim.run(x0m, x0s, 5)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES == {"linearize": 5, "condense": 5, "cholesky": 20, "chol_solve": 5,
+                              "ipm_iteration": 15}
+    assert (log.simSolverDebug[..., 4] == 0).all()
+    assert torch.isfinite(log.simU).all()

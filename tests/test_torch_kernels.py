@@ -1,0 +1,174 @@
+"""The plain PyTorch versions of the five ported kernels (K1-K5) against the
+JAX package's references, on the CPU; and the wrappers' dispatch rule.
+
+  K1 linearize_ref   vs make_linearize_rollout's jacfwd_path (vmapped)
+  K2 condense_ref    vs condense_scan_ref
+  K3 cholesky_ref    vs jnp.linalg.cholesky
+  K5 chol_solve_ref  vs jax.scipy.linalg.cho_solve
+  K4 iteration_ref   vs the vmapped iteration_ref (float64), and at float32,
+                     B = 128 vs the Pallas kernel fused_iteration_batched in
+                     interpret mode, as tests/test_ipm_fused.py runs it.
+
+The CUDA kernels themselves run only on the card (tests/test_torch_cuda.py,
+chip_smoke.py), where they are held against these plain versions.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+import jax.scipy.linalg as jsl
+
+from tum_control_tpu.api import build_controller as j_build_controller
+from tum_control_tpu.config import MPCConfig as JMPC, SimConfig as JSim
+from tum_control_tpu.ops.pallas_kernels import ipm_iter as jipm
+from tum_control_tpu.ops.pallas_kernels.condense import condense_scan_ref
+from tum_control_tpu_torch.api import build_controller
+from tum_control_tpu_torch.config import MPCConfig, SimConfig
+from tum_control_tpu_torch.ops.kernels import build
+from tum_control_tpu_torch.ops.kernels.chol import chol_solve, chol_solve_ref, cholesky, cholesky_ref
+from tum_control_tpu_torch.ops.kernels.condense import condense
+from tum_control_tpu_torch.ops.kernels.ipm_iter import fused_iteration, masks_of, sigma_of
+
+from test_ipm_fused import _init_carry, _random_problem
+
+T = lambda a: torch.tensor(np.asarray(a))
+
+
+def _spd(B, n, seed):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((B, n, n + 4))
+    return A @ A.transpose(0, 2, 1) / n + 0.5 * np.eye(n)
+
+
+def test_k1_linearize_plain_matches_jacfwd_path():
+    """Same RK4 over the same model in float64: agreement to ~1e-12."""
+    rng = np.random.default_rng(10)
+    B, N = 3, 38
+    XU = np.concatenate([
+        rng.uniform(-50, 50, (B, N, 2)), rng.uniform(0, 6.2, (B, N, 1)),
+        rng.uniform(0.0, 30, (B, N, 1)), rng.normal(0, 0.5, (B, N, 4)),
+        rng.normal(0, 1, (B, N, 2)),
+    ], axis=2)
+    XU[0, :5, 3] = 0.0          # standstill rows: the low-speed guard
+    XU[1, :5, 4:7] = 0.0        # exactly zero slip
+    jctrl = j_build_controller(JMPC(), JSim())
+    Fj, Jj = jax.jit(jax.vmap(jctrl.engine.funcs.lin_rollout))(XU)
+    tctrl = build_controller(MPCConfig(), SimConfig(), device="cpu", dtype=torch.float64)
+    Ft, Jt = tctrl.engine.funcs.lin_rollout(T(XU))
+    assert Jt.shape == (B, N, 8, 10)
+    np.testing.assert_allclose(Ft.numpy(), np.asarray(Fj), rtol=1e-12, atol=1e-10)
+    np.testing.assert_allclose(Jt.numpy(), np.asarray(Jj), rtol=1e-12, atol=1e-10)
+
+
+def test_k2_condense_plain_matches_scan_ref():
+    """Products of 38 stage matrices in float64, same order: rtol 1e-12."""
+    rng = np.random.default_rng(11)
+    Bt, N, nx, nu = 4, 38, 8, 2
+    A = np.eye(nx) + 0.1 * rng.standard_normal((Bt, N, nx, nx))
+    Bm = rng.standard_normal((Bt, N, nx, nu))
+    xi = rng.standard_normal((Bt, N, nx))
+    d0 = rng.standard_normal((Bt, nx))
+    e_j, G_j = jax.vmap(condense_scan_ref)(A, Bm, xi, d0)
+    e_t, G_t = condense(T(A), T(Bm), T(xi), T(d0))
+    assert G_t.shape == (Bt, N + 1, nx, N * nu)
+    np.testing.assert_allclose(e_t.numpy(), np.asarray(e_j), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(G_t.numpy(), np.asarray(G_j), rtol=1e-12, atol=1e-12)
+    assert torch.count_nonzero(G_t[:, 0]) == 0
+    assert torch.count_nonzero(G_t[:, 5, :, 5 * nu:]) == 0  # columns past k*nu stay 0
+
+
+@pytest.mark.parametrize("n", [12, 76])
+def test_k3_k5_cholesky_and_solve(n):
+    """Well-conditioned SPD (cond ~ 1e2) in float64: rtol 1e-11."""
+    H = _spd(5, n, seed=12 + n)
+    b = np.random.default_rng(13).standard_normal((5, n))
+    L_t = cholesky(T(H))
+    L_j = jnp.linalg.cholesky(H)
+    np.testing.assert_allclose(L_t.numpy(), np.asarray(L_j), rtol=1e-11, atol=1e-12)
+    assert torch.count_nonzero(torch.triu(L_t, 1)) == 0
+    x_t = chol_solve(L_t, T(b))
+    x_j = jax.vmap(lambda L, r: jsl.cho_solve((L, True), r))(L_j, b)
+    np.testing.assert_allclose(x_t.numpy(), np.asarray(x_j), rtol=1e-11, atol=1e-12)
+    np.testing.assert_allclose(chol_solve_ref(L_t, T(b)).numpy(), x_t.numpy(), rtol=0, atol=0)
+    np.testing.assert_allclose(cholesky_ref(T(H)).numpy(), L_t.numpy(), rtol=0, atol=0)
+
+
+def _k4_inputs(B, nz, ncg, seed, dtype):
+    H0, g0, G, c0, lb, ub, z1, z2 = (np.asarray(a, dtype) for a in _random_problem(B, nz, ncg, seed))
+    carry, nt, masks = _init_carry(*(jnp.asarray(a, jnp.float32) for a in (c0, lb, ub, z2)), nz)
+    carry = tuple(np.asarray(c, dtype) for c in carry)
+    nt = np.asarray(nt, dtype)
+    sig = np.asarray(jax.vmap(jipm.sigma_of)(*carry[2:10], z1, z2, *masks))
+    H = H0 + np.einsum("bic,bi,bid->bcd", G, sig[:, :ncg], G) + (sig[:, ncg:, None] + 1e-11) * np.eye(nz)
+    L = np.linalg.cholesky(H.astype(np.float64)).astype(dtype)
+    lam_d = carry[6] - carry[7]
+    rw = (np.einsum("bij,bj->bi", H0, carry[0]) + g0 + np.einsum("bij,bi->bj", G, lam_d[:, :ncg])
+          + lam_d[:, ncg:]).astype(dtype)
+    return dict(L=L, G=G, rw=rw, c0=c0, lb=lb, ub=ub, z1=z1, z2=z2, nt=nt), carry, masks
+
+
+@pytest.mark.parametrize("nz,ncg", [(12, 10), (76, 78)])
+def test_k4_plain_matches_vmapped_iteration_ref(nz, ncg):
+    """One Mehrotra iteration from identical float64 inputs: rtol 1e-9
+    (the direction solves of a cond ~1e4 system, in a different but
+    exact-arithmetic-equivalent substitution order)."""
+    args, carry, masks = _k4_inputs(16, nz, ncg, seed=14, dtype=np.float64)
+    ref_c, ref_sig, ref_unc = jax.vmap(
+        lambda *a: jipm.iteration_ref(*a, n_id=nz, gamma_ftb=0.99)
+    )(*args.values(), *carry)
+    got_c, got_sig, got_unc = fused_iteration(*(T(a) for a in args.values()),
+                                              tuple(T(c) for c in carry), 0.99)
+    for name, g, r in zip(["w", "Gw", "su", "sl", "pu", "pl", "lam_u", "lam_l", "mu_u", "mu_l"],
+                          got_c, ref_c):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-9, atol=1e-10, err_msg=name)
+    np.testing.assert_allclose(got_sig.numpy(), np.asarray(ref_sig), rtol=1e-9, atol=1e-10)
+    np.testing.assert_array_equal(got_unc.numpy(), np.asarray(ref_unc))
+    s_t = sigma_of(*(T(c) for c in carry[2:10]), T(args["z1"]), T(args["z2"]),
+                   *masks_of(T(args["lb"]), T(args["ub"]), T(args["z2"])))
+    s_j = jax.vmap(jipm.sigma_of)(*carry[2:10], args["z1"], args["z2"], *masks)
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("nz,ncg", [(12, 10), (16, 6)])
+def test_k4_plain_f32_matches_pallas_kernel_interpret(nz, ncg):
+    """float32, B = 128, against the TPU kernel body run in interpret mode
+    (factor padded to a multiple of 16 with an identity tail, as the TPU
+    path pads it); the tolerance of tests/test_ipm_fused.py, 2e-4."""
+    B = jipm.LANES
+    args, carry, _ = _k4_inputs(B, nz, ncg, seed=0, dtype=np.float32)
+    npad = -(-nz // 16) * 16
+    Lp = np.zeros((B, npad, npad), np.float32)
+    Lp[:, :nz, :nz] = args["L"]
+    Lp[:, np.arange(nz, npad), np.arange(nz, npad)] = 1.0
+    lanes_mat = lambda a: jnp.transpose(jnp.asarray(a).reshape(1, B, *a.shape[1:]), (0, 2, 3, 1))
+    lanes = lambda a: jipm._lanes(jnp.asarray(a), B)
+    k_c, k_sig, k_unc = jipm.fused_iteration_batched(
+        lanes_mat(Lp), lanes_mat(args["G"]), lanes(args["rw"]),
+        *(lanes(args[k]) for k in ("c0", "lb", "ub", "z1", "z2")), lanes(args["nt"][:, None]),
+        tuple(lanes(c) for c in carry), 0.99, interpret=True,
+    )
+    got_c, got_sig, got_unc = fused_iteration(*(T(a) for a in args.values()),
+                                              tuple(T(c) for c in carry), 0.99)
+    assert got_c[0].dtype == torch.float32
+    for g, k in zip(got_c, k_c):
+        np.testing.assert_allclose(g.numpy(), np.asarray(jipm._unlanes(k, B)), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got_sig.numpy(), np.asarray(jipm._unlanes(k_sig, B)),
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_array_equal(got_unc.numpy(), np.asarray(k_unc).reshape(B))
+
+
+def test_wrappers_dispatch_by_tensor():
+    """CPU tensors take the plain version (no build, no launch); tensors
+    that lie on no supported device raise; no launch is counted."""
+    build.reset_launches()
+    H = T(_spd(2, 6, seed=1))
+    assert torch.equal(cholesky(H), cholesky_ref(H))
+    with pytest.raises(ValueError):
+        build.use_kernel(torch.empty(3, device="meta"))
+    with pytest.raises(ValueError):
+        build.use_kernel(H, torch.empty(3, device="meta"))
+    assert all(v == 0 for v in build.LAUNCHES.values())
+    assert set(build.LAUNCHES) == {"linearize", "condense", "cholesky", "chol_solve",
+                                   "ipm_iteration"}

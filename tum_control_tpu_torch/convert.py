@@ -1,0 +1,76 @@
+"""Carry state of the JAX package across to the port.
+
+Every function takes numpy arrays and plain dicts (e.g. `nt._asdict()` of a
+JAX NamedTuple with each leaf passed through `np.asarray`), never JAX
+objects, and returns the port's records on the requested device/dtype.
+Arrays are batch-first, as a vmapped JAX run produces them; add the batch
+axis to the state of an unbatched run first.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tum_control_tpu_torch.controllers.common import GGTables
+from tum_control_tpu_torch.ops.ipm import IPMWarm
+from tum_control_tpu_torch.ops.rti import RTIState
+from tum_control_tpu_torch.params import TireParams, VehicleParams
+from tum_control_tpu_torch.sim.closed_loop import SimCarry, make_generator
+from tum_control_tpu_torch.sim.estimator import EstimatorState
+from tum_control_tpu_torch.track.trajectory import RefTrajectory
+
+WARM_FIELDS = IPMWarm._fields  # su, sl, lam_u, lam_l, mu_u, mu_l
+
+
+def _t(a, dtype, device):
+    return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def vehicle_params(d: dict) -> VehicleParams:
+    return VehicleParams(**{k: float(v) for k, v in d.items()})
+
+
+def tire_params(d: dict) -> TireParams:
+    return TireParams(**{k: float(v) for k, v in d.items()})
+
+
+def gg_tables(d: dict, device=None, dtype=None) -> GGTables:
+    """From {vel, ax_max, ax_min, ay_max} arrays."""
+    return GGTables(d["vel"], d["ax_max"], d["ax_min"], d["ay_max"], device=device, dtype=dtype)
+
+
+def ref_trajectory(d: dict, device=None, dtype=None) -> RefTrajectory:
+    """From {pos, yaw, v, acc, seg_time, cum_time, n_valid}."""
+    return RefTrajectory(
+        **{k: _t(d[k], dtype, device) for k in ("pos", "yaw", "v", "acc", "seg_time", "cum_time")},
+        n_valid=int(np.asarray(d["n_valid"])),
+    )
+
+
+def rti_state(d: dict, device=None, dtype=None) -> RTIState:
+    """From {X (B,N+1,nx), U (B,N,nu), warm: {su, sl, lam_u, lam_l, mu_u, mu_l}}."""
+    return RTIState(
+        X=_t(d["X"], dtype, device),
+        U=_t(d["U"], dtype, device),
+        warm=IPMWarm(*(_t(d["warm"][k], dtype, device) for k in WARM_FIELDS)),
+    )
+
+
+def sim_carry(d: dict, seed: int = 0, device=None, dtype=None) -> SimCarry:
+    """From {ctrl_state: (as rti_state), x_sim, x_dist, x_est, est_buf
+    (B,8,15), est_count (B,), pose}. A JAX PRNG key has no torch
+    counterpart: the disturbance generator is seeded from `seed`."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    return SimCarry(
+        ctrl_state=rti_state(d["ctrl_state"], device, dtype),
+        extra=None,
+        x_sim=_t(d["x_sim"], dtype, device),
+        x_dist=_t(d["x_dist"], dtype, device),
+        x_est=_t(d["x_est"], dtype, device),
+        est_state=EstimatorState(
+            buf=_t(d["est_buf"], dtype, device),
+            count=torch.as_tensor(np.asarray(d["est_count"]), dtype=torch.int32, device=device),
+        ),
+        pose=_t(d["pose"], dtype, device),
+        key=make_generator(seed, device),
+    )

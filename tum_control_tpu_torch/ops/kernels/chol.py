@@ -1,0 +1,98 @@
+"""K3: batched Cholesky factorization, K5: the solve L L^T x = b.
+
+Port of tum_control_tpu/ops/pallas_kernels/chol.py (`_chol_kernel_blocked`
+and `_solve_kernel_blocked`, launched by `_cholesky_tpu_packed` /
+`_solve_tpu_packed`). The port factors at n (76 on the main path) without
+the TPU's pad to a multiple of 16, and its factor is an ordinary
+(B, n, n) lower-triangular tensor, not an opaque lanes layout.
+
+  * `cholesky_ref`, `chol_solve_ref`: plain PyTorch loops (right-looking
+    elimination; forward then backward substitution);
+  * `cholesky`, `chol_solve`: the wrappers. CPU tensors -> the plain loops;
+    CUDA float32 tensors -> csrc/chol.cu; anything else raises.
+
+`torch.linalg.cholesky` / `torch.cholesky_solve` compute the same functions;
+they are timing yardsticks only and are not used here.
+"""
+from __future__ import annotations
+
+
+import torch
+
+from tum_control_tpu_torch.ops.kernels import build
+
+MAX_N_SOLVE = 128  # csrc/trisolve.cuh holds at most 4 rows per lane
+
+
+def cholesky_ref(H):
+    """(B, n, n) SPD -> lower factor L (B, n, n); reads the lower triangle."""
+    n = H.shape[-1]
+    A = H.clone()
+    L = torch.zeros_like(H)
+    for j in range(n):
+        d = torch.sqrt(A[:, j, j])
+        col = A[:, j + 1:, j] / d[:, None]
+        L[:, j, j] = d
+        L[:, j + 1:, j] = col
+        A[:, j + 1:, j + 1:] -= col[:, :, None] * col[:, None, :]
+    return L
+
+
+def chol_solve_ref(L, b):
+    """(B, n, n) lower factor, (B, n) -> x with L L^T x = b."""
+    n = L.shape[-1]
+    x = b.clone()
+    for j in range(n):
+        x[:, j] = x[:, j] / L[:, j, j]
+        x[:, j + 1:] -= L[:, j + 1:, j] * x[:, j:j + 1]
+    for j in range(n - 1, -1, -1):
+        x[:, j] = x[:, j] / L[:, j, j]
+        x[:, :j] -= L[:, j, :j] * x[:, j:j + 1]
+    return x
+
+
+def _check_square(H):
+    if H.dim() != 3 or H.shape[1] != H.shape[2]:
+        raise ValueError(f"expected (B, n, n) matrices, got {tuple(H.shape)}")
+
+
+def cholesky_cuda(H):
+    _check_square(H)
+    B, n, _ = H.shape
+    L = torch.empty_like(H)
+    fn = build.library("chol").cholesky_f32
+    with torch.cuda.device(H.device):
+        status = fn(build.ptr(H), build.ptr(L), B, n, build.stream_of(H))
+    build.check_status("cholesky_f32", status)
+    build.LAUNCHES["cholesky"] += 1
+    return L
+
+
+def chol_solve_cuda(L, b):
+    _check_square(L)
+    B, n, _ = L.shape
+    if b.shape != (B, n):
+        raise ValueError(f"chol_solve: rhs {tuple(b.shape)} does not match L {tuple(L.shape)}")
+    if n > MAX_N_SOLVE:
+        raise ValueError(f"chol_solve kernel supports n <= {MAX_N_SOLVE}, got {n}")
+    x = torch.empty_like(b)
+    fn = build.library("chol").chol_solve_f32
+    with torch.cuda.device(L.device):
+        status = fn(build.ptr(L), build.ptr(b), build.ptr(x), B, n, build.stream_of(L))
+    build.check_status("chol_solve_f32", status)
+    build.LAUNCHES["chol_solve"] += 1
+    return x
+
+
+def cholesky(H):
+    """Batched lower Cholesky factor; dispatches by device (module doc)."""
+    if build.use_kernel(H):
+        return cholesky_cuda(H)
+    return cholesky_ref(H)
+
+
+def chol_solve(L, b):
+    """Batched L L^T x = b; dispatches by device (module doc)."""
+    if build.use_kernel(L, b):
+        return chol_solve_cuda(L, b)
+    return chol_solve_ref(L, b)

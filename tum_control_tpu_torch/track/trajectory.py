@@ -1,0 +1,84 @@
+"""Reference-trajectory / track loading (port of
+tum_control_tpu/track/trajectory.py).
+
+The per-point segment traversal time and its prefix sums are computed once
+in float64 numpy and then cast to the working dtype:
+
+    seg_time[j] = ||p[j] - p[j-1 mod M]|| / ref_v[j],  cum_time = [0, cumsum(seg_time)]
+"""
+from __future__ import annotations
+
+import json
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+class RefTrajectory(NamedTuple):
+    pos: torch.Tensor       # (M, 2) pos_x, pos_y
+    yaw: torch.Tensor       # (M,)   ref_yaw (wrapped to [0, 2pi))
+    v: torch.Tensor         # (M,)   ref_v
+    acc: torch.Tensor       # (M,)   ref_acc
+    seg_time: torch.Tensor  # (M,)   traversal time of segment ending at j
+    cum_time: torch.Tensor  # (M+1,) prefix sums: cum_time[i] = sum(seg_time[:i])
+    n_valid: int            # number of real points (<= M when padded)
+
+    @property
+    def n_points(self) -> int:
+        """Array length."""
+        return self.pos.shape[0]
+
+
+class Track(NamedTuple):
+    center: np.ndarray  # (K, 2)
+    inner: np.ndarray   # (K, 2)
+    outer: np.ndarray   # (K, 2)
+
+
+def postprocess_yaw(yaw):
+    """Wrap yaw to [0, 2*pi)."""
+    return np.mod(yaw, 2.0 * np.pi)
+
+
+def load_ref_trajectory(path: str, dtype=None, device=None) -> RefTrajectory:
+    """Load a reftraj_*.json into a RefTrajectory of tensors."""
+    with open(path, "r") as fh:
+        raw = json.load(fh)
+    pos = np.stack([np.asarray(raw["pos_x"]), np.asarray(raw["pos_y"])], axis=1)
+    v = np.asarray(raw["ref_v"], dtype=np.float64)
+    yaw = np.asarray(raw["ref_yaw"], dtype=np.float64)
+    acc = np.asarray(raw.get("ref_acc", np.zeros_like(v)), dtype=np.float64)
+    seg = np.linalg.norm(pos - np.roll(pos, 1, axis=0), axis=1) / v
+    cum = np.concatenate([[0.0], np.cumsum(seg)])
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return RefTrajectory(
+        pos=t(pos), yaw=t(yaw), v=t(v), acc=t(acc), seg_time=t(seg), cum_time=t(cum),
+        n_valid=int(pos.shape[0]),
+    )
+
+
+def load_track(path: str) -> Track:
+    """Load a track_*.json (host-side numpy; only used for plotting/eval)."""
+    with open(path, "r") as fh:
+        raw = json.load(fh)
+    return Track(
+        center=np.stack([raw["X"], raw["Y"]], axis=1),
+        inner=np.stack([raw["X_i"], raw["Y_i"]], axis=1),
+        outer=np.stack([raw["X_o"], raw["Y_o"]], axis=1),
+    )
+
+
+def initial_state(path: str, idx_ref_start: int):
+    """Initial MPC (8,) and plant (7,) numpy states from a trajectory point:
+    pose from the start index, vlong = ref_v, vlat = yawrate = delta_f = a = 0."""
+    with open(path, "r") as fh:
+        raw = json.load(fh)
+    px = float(raw["pos_x"][idx_ref_start])
+    py = float(raw["pos_y"][idx_ref_start])
+    yaw = float(postprocess_yaw(np.float64(raw["ref_yaw"][idx_ref_start])))
+    v = float(raw["ref_v"][idx_ref_start])
+    x0_mpc = np.array([px, py, yaw, v, 0.0, 0.0, 0.0, 0.0])
+    x0_sim = np.array([px, py, yaw, v, 0.0, 0.0, 0.0])
+    return x0_mpc, x0_sim
+
