@@ -5,23 +5,28 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. prints the card (`nvidia-smi` name and power limit) and the TF32
-     setting, and builds the five hand-written kernels from
+     setting, and builds the hand-written kernels from
      tum_control_tpu_torch/csrc with nvcc for sm_90a;
-  2. runs each kernel (K1-K5) at the nominal closed loop's shapes (B = 128
-     scenarios, N = 38, nx = 8, nu = 2, nz = 76, 78 general rows) on inputs
-     from a seeded numpy generator, holds it against its plain PyTorch
-     version on the same inputs, and times kernel, plain version and (for
-     K3, K5) the PyTorch library call with CUDA events;
-  3. drives the main path: `build_simulation` on cuda in float32 with
-     `batched_scenarios` at B = 128, a settle run and a timed run, with the
-     launch counters reset just before and read just after; checks solver
-     health, finite logs, and prints solves/s and |lat_dev| p50/p99; takes a
-     short torch.profiler window of the same loop;
-  4. reruns each of the first CPU_STEPS steps on the CPU (plain versions)
-     in float32 and float64 from the card's own carry at that step and holds
-     the card's inputs simU to both; prints how far a free float32 run from
-     the same initial states drifts;
-  5. prints one {"kernels": [...]} line and, last, the device line.
+  2. runs each kernel (K1-K6) at its closed loop's shapes (B = 128
+     scenarios; nominal: N = 38, nx = 8, nu = 2, nz = 76, 78 general rows;
+     K1 also at SNMPC's 88 elements per scenario and one RK4 substep; K6 at
+     SNMPC's nominal tail, 33 stages from the carry of its 5 head stages) on
+     inputs from a seeded numpy generator, holds it against its plain
+     PyTorch version on the same inputs, and times kernel, plain version
+     and (for K3, K5) the PyTorch library call with CUDA events;
+  3. drives each ported controller's closed loop, the nominal NMPC and the
+     SNMPC: `build_simulation` on cuda in float32 with `batched_scenarios`
+     at B = 128, a settle run and a timed run, with the launch counters
+     reset just before and read just after; checks that the path's kernels
+     (and no other) were launched, solver health and finite logs; prints
+     solves/s and |lat_dev| p50/p99; takes a short torch.profiler window of
+     the same loop;
+  4. after each loop, reruns each of its first steps on the CPU (plain
+     versions) in float32 and float64 from the card's own carry at that step
+     and holds the card's inputs simU to both; prints how far a free float32
+     run from the same initial states drifts;
+  5. prints one {"kernels": [...]} line (launches per path) and, last, the
+     device line.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
@@ -43,9 +48,19 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 
 B, N, NX, NU = 128, 38, 8, 2
-SETTLE, STEPS, CPU_STEPS = 100, 300, 20   # settle steps, timed steps, steps rerun on the CPU
 NZ, NCG = N * NU, (N + 1) * 2   # 76 condensed controls, 78 general rows (nh=1 + delta_f per node)
 NC = NCG + NZ
+# SNMPC: 10 samples + the nominal copy, uncertainty horizon 5 stages; K1 runs
+# on 5 x 11 head + 33 tail elements per scenario, K6 on the 33-stage tail
+NS1, UPH = 11, 5
+N2, COL0 = N - UPH, UPH * NU
+# per path: settle steps, timed steps, steps rerun on the CPU
+PATHS = {"nominal": (100, 300, 20), "snmpc": (50, 200, 10)}
+# the kernels each path must launch; every other counter must stay 0
+PATH_KERNELS = {
+    "nominal": ("linearize", "condense", "cholesky", "chol_solve", "ipm_iteration"),
+    "snmpc": ("linearize", "condense_from", "cholesky", "chol_solve", "ipm_iteration"),
+}
 
 # tolerance of each kernel against its plain version on the same inputs, held
 # for every output on its own (for K1 every column of J) as
@@ -53,16 +68,18 @@ NC = NCG + NZ
 # different operation orders; each plain version's float32 result lies within
 # 1e-6 of its float64 result relative to that output's max (K4: 3e-6, its
 # directions go through a factor of cond ~1e3), so TOL leaves 10-30x of room
-TOL = {"linearize": 2e-5, "condense": 2e-5, "cholesky": 2e-5, "chol_solve": 2e-5,
-       "ipm_iteration": 1e-4}
+TOL = {"linearize": 2e-5, "condense": 2e-5, "condense_from": 2e-5, "cholesky": 2e-5,
+       "chol_solve": 2e-5, "ipm_iteration": 1e-4}
 # the card's applied inputs simU against the CPU's float32 and float64 step
 # from the same carry: max |card - cpu| <= TOL_U * max |simU f64| per input.
-# One float32 step lies within 3e-4 of the float64 step on this scale
-TOL_U = 2e-3
+# One float32 step lies within 3e-4 (nominal) and 2e-4 (SNMPC) of the
+# float64 step on this scale
+TOL_U = {"nominal": 2e-3, "snmpc": 2e-3}
 CARRY = ("w", "Gw", "su", "sl", "pu", "pl", "lam_u", "lam_l", "mu_u", "mu_l")
 REPLACES = {
     "linearize": "tum_control_tpu/ops/pallas_kernels/linearize.py:41",
     "condense": "tum_control_tpu/ops/pallas_kernels/condense.py:67",
+    "condense_from": "tum_control_tpu/ops/pallas_kernels/condense.py:291",
     "cholesky": "tum_control_tpu/ops/pallas_kernels/chol.py:90",
     "ipm_iteration": "tum_control_tpu/ops/pallas_kernels/ipm_iter.py:173",
     "chol_solve": "tum_control_tpu/ops/pallas_kernels/chol.py:139",
@@ -70,6 +87,7 @@ REPLACES = {
 SOURCE = {
     "linearize": "tum_control_tpu_torch/csrc/linearize.cu",
     "condense": "tum_control_tpu_torch/csrc/condense.cu",
+    "condense_from": "tum_control_tpu_torch/csrc/condense.cu",
     "cholesky": "tum_control_tpu_torch/csrc/chol.cu",
     "ipm_iteration": "tum_control_tpu_torch/csrc/ipm_iter.cu",
     "chol_solve": "tum_control_tpu_torch/csrc/chol.cu",
@@ -157,7 +175,9 @@ def kernel_phase(dev):
     from tum_control_tpu_torch.ops.kernels.chol import (
         chol_solve_cuda, chol_solve_ref, cholesky_cuda, cholesky_ref,
     )
-    from tum_control_tpu_torch.ops.kernels.condense import condense_cuda, condense_ref
+    from tum_control_tpu_torch.ops.kernels.condense import (
+        condense_cuda, condense_from_cuda, condense_from_ref, condense_ref,
+    )
     from tum_control_tpu_torch.ops.kernels.ipm_iter import (
         fused_iteration_cuda, iteration_ref, masks_of, sigma_of,
     )
@@ -168,17 +188,21 @@ def kernel_phase(dev):
     rng = np.random.default_rng(0)
     results = {}
 
-    def record(name, err_rel, ms, plain_ms, bytes_, ops, library_ms=None):
+    def record(name, err_rel, ms, plain_ms, bytes_, ops, library_ms=None, case="nominal"):
+        """One shape case of a kernel; a kernel's top-level numbers are those
+        of its first case, every case is listed under "cases"."""
         err, rel = err_rel
         b_ms, b_by = bound(bytes_, ops)
-        results[name] = dict(name=name, route="cuda", source=SOURCE[name],
-                             replaces=REPLACES[name], launches=0, max_abs_err=err, ms=ms,
-                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                             library_ms=library_ms, max_rel_err=rel)
+        entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=library_ms, max_rel_err=rel)
+        if name not in results:
+            results[name] = dict(name=name, route="cuda", source=SOURCE[name],
+                                 replaces=REPLACES[name], launches=0, **entry, cases=[])
+        results[name]["cases"].append(dict(case=case, **entry))
         lib = "null" if library_ms is None else f"{library_ms:.4f}"
         worst = max(rel, key=rel.get)
-        say(f"[{name}] max abs err {err:.3e}; worst output {worst}: {rel[worst]:.3e} of its "
-            f"max|plain| (tol {TOL[name]:.0e}) | kernel {ms:.4f} ms"
+        say(f"[{name}/{case}] max abs err {err:.3e}; worst output {worst}: {rel[worst]:.3e} of "
+            f"its max|plain| (tol {TOL[name]:.0e}) | kernel {ms:.4f} ms"
             f" | plain {plain_ms:.3f} ms | library {lib} ms | bound {b_ms:.5f} ms ({b_by})")
 
     # K1: linearize at curvature-consistent states spread along the lap
@@ -215,6 +239,48 @@ def kernel_phase(dev):
     ops = B * sum(2 * NX * NX * (k * NU + 1) + 2 * NX * NU for k in range(N))
     record("condense", err, time_cuda(lambda: condense_cuda(A_, B_, xi, d0), 50),
            time_cuda(lambda: condense_ref(A_, B_, xi, d0), 5), nbytes(A_, B_, xi, d0, e, Gam), ops)
+
+    # K1 at SNMPC's shapes: one RK4 substep; the head rows are every copy of
+    # the fanned state at the 5 head stages, the tail rows the nominal copy
+    # at the other 33, in the order lin_structured builds them
+    sctrl = build_controller(MPCConfig(controller="snmpc"), SimConfig(), device=dev)
+    slr = sctrl.lin_roll8
+    fan = sctrl._fan(x0.to(dev, torch.float32)).reshape(B, NS1, NX).double().cpu().numpy()
+    Xs = fan[:, None] + rng.normal(0, 1, (B, N, NS1, NX)) * [0.5, 0.5, 0.05, 1, 0.1, 0.05,
+                                                             0.02, 0.5]
+    Us = rng.normal(0, 1, (B, N, NU)) * [1.0, 0.1]
+    head = np.concatenate([Xs[:, :UPH], np.broadcast_to(Us[:, :UPH, None], (B, UPH, NS1, NU))],
+                          axis=-1).reshape(B, UPH * NS1, NX + NU)
+    tail = np.concatenate([Xs[:, UPH:, 0], Us[:, UPH:]], axis=-1)
+    XUs = torch.tensor(np.concatenate([head, tail], axis=1), dtype=torch.float32, device=dev)
+    Fs, Js = linearize_cuda(XUs, slr.prm, slr.n_sub)
+    Fsp, Jsp = linearize_ref(XUs, slr.step, NX)
+    err = compare("linearize", [("F", Fs, Fsp)] + [(f"J[..., {c}]", Js[..., c], Jsp[..., c])
+                                                   for c in range(NX + NU)])
+    # one substep: 4 model evaluations per element instead of 12
+    record("linearize", err, time_cuda(lambda: linearize_cuda(XUs, slr.prm, slr.n_sub), 50),
+           time_cuda(lambda: linearize_ref(XUs, slr.step, NX), 3, warmup=1),
+           nbytes(XUs, Fs, Js), B * XUs.shape[1] * 4 * 112 * (1 + 2 * 10), case="snmpc")
+
+    # K6: SNMPC's nominal tail from a head carry, on the tail rows' K1
+    # sensitivities; Gamma0 is nonzero in its first COL0 columns, as the
+    # head's carry is
+    At = Js[:, UPH * NS1:, :, :NX].contiguous()
+    Bt = Js[:, UPH * NS1:, :, NX:].contiguous()
+    xit = torch.tensor(rng.normal(0, 0.01, (B, N2, NX)), dtype=torch.float32, device=dev)
+    e0 = torch.tensor(rng.normal(0, 0.1, (B, NX)), dtype=torch.float32, device=dev)
+    G0 = np.zeros((B, NX, NZ))
+    G0[..., :COL0] = rng.normal(0, 0.1, (B, NX, COL0))
+    G0 = torch.tensor(G0, dtype=torch.float32, device=dev)
+    args6 = (At, Bt, xit, e0, G0, COL0)
+    e6, G6 = condense_from_cuda(*args6)
+    e6p, G6p = condense_from_ref(*args6)
+    err = compare("condense_from", [("e", e6, e6p), ("Gamma", G6, G6p)])
+    # A_t Gam_t over the columns this carry fills (COL0 + t nu), e, and B
+    ops = B * sum(2 * NX * NX * (COL0 + t * NU + 1) + 2 * NX * NU for t in range(N2))
+    record("condense_from", err, time_cuda(lambda: condense_from_cuda(*args6), 50),
+           time_cuda(lambda: condense_from_ref(*args6), 5),
+           nbytes(At, Bt, xit, e0, G0, e6, G6), ops, case="snmpc")
 
     # K3, K5, K4 on one random QP's first IPM iteration
     H0, g0, G, c0, lb, ub, z1, z2 = random_qp(rng, dev)
@@ -278,14 +344,49 @@ def move_carry(carry, device, dtype):
     return mv(carry)._replace(key=make_generator(0, device))
 
 
-def loop_phase(dev):
+def profile_window(sim, carry, step_s, tag):
+    """A short torch.profiler window of the loop: device time by kernel and
+    the device's busy share of the untraced step (`step_s` seconds)."""
+    from torch.profiler import ProfilerActivity, profile
+    n_prof = 10
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run_from(carry, n_prof)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    dev_time = lambda r: getattr(r, "self_device_time_total", 0.0) or getattr(
+        r, "self_cuda_time_total", 0.0)
+    kernels = [r for r in prof.key_averages() if str(r.device_type).endswith("CUDA")]
+    dev_us = sum(dev_time(r) for r in kernels)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"chip_smoke_profile_{tag}.txt"), "w") as fh:
+        fh.write("\n".join(f"{dev_time(r):12.1f} us {r.count:7d}  {r.key}"
+                           for r in sorted(kernels, key=lambda r: -dev_time(r))))
+    wall_us, step_us = (t1 - t0) * 1e6, step_s * 1e6
+    if dev_us > 0:
+        say(f"[profile/{tag}] {n_prof} traced steps: {sum(r.count for r in kernels) / n_prof:.0f} "
+            f"kernels/step, device busy {dev_us / n_prof:.1f} us/step; traced wall "
+            f"{wall_us / n_prof:.1f} us/step, untraced {step_us:.1f} us/step -> device idle "
+            f"share {1 - dev_us / n_prof / step_us:.4f} of the untraced step")
+        for r in sorted(kernels, key=lambda r: -dev_time(r))[:10]:
+            say(f"[profile/{tag}]   {dev_time(r) / n_prof:9.1f} us/step {r.count / n_prof:7.1f}"
+                f" launches/step  {r.key[:80]}")
+    else:
+        say(f"[profile/{tag}] no device time in the trace: device busy share not measured")
+
+
+def loop_phase(dev, path):
+    """Drives one controller's closed loop on the card; the launch counters
+    are reset just before the settle run and read just after the timed run."""
     from tum_control_tpu_torch.api import build_simulation
     from tum_control_tpu_torch.config import MPCConfig, SimConfig
     from tum_control_tpu_torch.ops.kernels import build
     from tum_control_tpu_torch.parallel.mesh import batched_scenarios
 
-    sim, _, _, traj, _ = build_simulation(SimConfig(sim_mode=0), MPCConfig(), device=dev,
-                                          dtype=torch.float32)
+    settle, steps, _ = PATHS[path]
+    sim, _, _, traj, _ = build_simulation(SimConfig(sim_mode=0), MPCConfig(controller=path),
+                                          device=dev, dtype=torch.float32)
     x0m, x0s = batched_scenarios(traj, B, dtype=torch.float32, device=dev)
     carry = sim.init_carry(x0m, x0s, key=0)
     carry0 = move_carry(carry, "cpu", torch.float32)
@@ -293,69 +394,42 @@ def loop_phase(dev):
     build.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    carry, log_settle = sim.run_from(carry, SETTLE)
+    carry, log_settle = sim.run_from(carry, settle)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    carry, log = sim.run_from(carry, STEPS)
+    carry, log = sim.run_from(carry, steps)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = dict(build.LAUNCHES)
-    say(f"[loop] launches over {SETTLE + STEPS} steps: {json.dumps(launches)}")
+    say(f"[loop/{path}] launches over {settle + steps} steps: {json.dumps(launches)}")
     for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+        if name in PATH_KERNELS[path]:
+            check(n > 0, f"kernel {name} was not launched on the {path} path")
+        else:
+            check(n == 0, f"kernel {name} was launched on the {path} path, which does not run it")
 
     for lg in (log_settle, log):
         for f, v in lg._asdict().items():
             if v.is_floating_point():
-                check(bool(torch.isfinite(v).all()), f"non-finite values in SimLog.{f}")
+                check(bool(torch.isfinite(v).all()), f"{path}: non-finite values in SimLog.{f}")
     status = log.simSolverDebug[..., 4]
     ok = float((status == 0).float().mean())
     lat = log.lat_dev.abs().flatten().double().cpu()
-    sps = B * STEPS / (t2 - t1)
+    sps = B * steps / (t2 - t1)
     p50, p99 = float(torch.quantile(lat, 0.5)), float(torch.quantile(lat, 0.99))
-    say(f"[loop] B={B} settle {SETTLE} steps {t1 - t0:.3f} s, timed {STEPS} steps "
-        f"{t2 - t1:.3f} s: {sps:.1f} solves/s, {(t2 - t1) / STEPS * 1e3:.3f} ms/step")
-    say(f"[loop] solver ok fraction {ok:.5f}; |lat_dev| p50 {p50:.4f} m, p99 {p99:.4f} m")
-    check(ok >= 0.99, f"solver ok fraction {ok} < 0.99")
-
-    # a short profiled window of the same loop: device time by kernel and
-    # the device's busy share of the window
-    from torch.profiler import ProfilerActivity, profile
-    n_prof = 10
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t3 = time.perf_counter()
-        sim.run_from(carry, n_prof)
-        torch.cuda.synchronize()
-        t4 = time.perf_counter()
-    dev_time = lambda r: getattr(r, "self_device_time_total", 0.0) or getattr(
-        r, "self_cuda_time_total", 0.0)
-    kernels = [r for r in prof.key_averages() if str(r.device_type).endswith("CUDA")]
-    dev_us = sum(dev_time(r) for r in kernels)
-    os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "chip_smoke_profile.txt"), "w") as fh:
-        fh.write("\n".join(f"{dev_time(r):12.1f} us {r.count:7d}  {r.key}"
-                           for r in sorted(kernels, key=lambda r: -dev_time(r))))
-    wall_us = (t4 - t3) * 1e6
-    step_us = (t2 - t1) / STEPS * 1e6
-    if dev_us > 0:
-        say(f"[profile] {n_prof} traced steps: {sum(r.count for r in kernels) / n_prof:.0f} "
-            f"kernels/step, device busy {dev_us / n_prof:.1f} us/step; traced wall "
-            f"{wall_us / n_prof:.1f} us/step, untraced {step_us:.1f} us/step -> device idle "
-            f"share {1 - dev_us / n_prof / step_us:.4f} of the untraced step")
-        for r in sorted(kernels, key=lambda r: -dev_time(r))[:10]:
-            say(f"[profile]   {dev_time(r) / n_prof:9.1f} us/step {r.count / n_prof:7.1f}"
-                f" launches/step  {r.key[:80]}")
-    else:
-        say("[profile] no device time in the trace: device busy share not measured")
+    say(f"[loop/{path}] B={B} settle {settle} steps {t1 - t0:.3f} s, timed {steps} steps "
+        f"{t2 - t1:.3f} s: {sps:.1f} solves/s, {(t2 - t1) / steps * 1e3:.3f} ms/step")
+    say(f"[loop/{path}] solver ok fraction {ok:.5f}; |lat_dev| p50 {p50:.4f} m, p99 {p99:.4f} m")
+    check(ok >= 0.99, f"{path}: solver ok fraction {ok} < 0.99")
+    profile_window(sim, carry, (t2 - t1) / steps, path)
     return launches, sim, carry0, log_settle
 
 
-def cpu_phase(sim, carry0, log_settle):
-    """Each of the first CPU_STEPS steps of the card's run again on the CPU,
-    where the port takes its plain versions, in float32 and float64 from the
-    card's own carry at that step: the card's simU is held to both within
-    TOL_U, in every scenario and step.
+def cpu_phase(path, sim, carry0, log_settle):
+    """Each of the path's first CPU steps of the card's run again on the
+    CPU, where the port takes its plain versions, in float32 and float64
+    from the card's own carry at that step: the card's simU is held to both
+    within TOL_U, in every scenario and step.
 
     A free run from the same initial states is no such yardstick: within 20
     steps a few scenarios of two float32 runs drift apart by O(1) in jerk
@@ -364,37 +438,39 @@ def cpu_phase(sim, carry0, log_settle):
     from tum_control_tpu_torch.api import build_simulation
     from tum_control_tpu_torch.config import MPCConfig, SimConfig
 
+    n = PATHS[path][2]
     t0 = time.perf_counter()
     f32, f64 = torch.float32, torch.float64
-    cpu = {dt: build_simulation(SimConfig(sim_mode=0), MPCConfig(), device="cpu", dtype=dt)[0]
-           for dt in (f32, f64)}
+    cpu = {dt: build_simulation(SimConfig(sim_mode=0), MPCConfig(controller=path), device="cpu",
+                                dtype=dt)[0] for dt in (f32, f64)}
     carry = move_carry(carry0, log_settle.simU.device, f32)
     zero = torch.zeros_like(carry.x_sim)
     U = {"card": [], f32: [], f64: []}
-    for _ in range(CPU_STEPS):
+    for _ in range(n):
         here = move_carry(carry, "cpu", f32)
         carry, lg = sim.step(carry, zero, zero)
         U["card"].append(lg.simU.double().cpu())
         for dt in (f32, f64):
             z = torch.zeros_like(here.x_sim, dtype=dt)
             U[dt].append(cpu[dt].step(move_carry(here, "cpu", dt), z, z)[1].simU.double())
-    U = {k: torch.stack(v, dim=1) for k, v in U.items()}   # (B, CPU_STEPS, nu)
+    U = {k: torch.stack(v, dim=1) for k, v in U.items()}   # (B, n, nu)
     scale = U[f64].abs().amax(dim=(0, 1))
-    say(f"[cpu] {CPU_STEPS} steps x {B} scenarios, each from the card's carry, on the CPU "
+    say(f"[cpu/{path}] {n} steps x {B} scenarios, each from the card's carry, on the CPU "
         f"in {time.perf_counter() - t0:.1f} s; max |simU f64| per input {scale.tolist()}")
     for label, a, b in (("card - cpu f32", "card", f32), ("card - cpu f64", "card", f64),
                         ("cpu f32 - cpu f64", f32, f64)):
         d = (U[a] - U[b]).abs()
         worst = d.amax(dim=(0, 1))
-        s, k = divmod(int(d.amax(dim=2).argmax()), CPU_STEPS)
-        say(f"[cpu] max |simU {label}| per input {worst.tolist()}, "
-            f"{(worst / scale).tolist()} of max |simU| (tol {TOL_U:.0e}; worst at scenario "
-            f"{s}, step {k})")
-        check(bool((worst <= TOL_U * scale).all()), f"max |simU {label}| beyond the tolerance")
+        s, k = divmod(int(d.amax(dim=2).argmax()), n)
+        say(f"[cpu/{path}] max |simU {label}| per input {worst.tolist()}, "
+            f"{(worst / scale).tolist()} of max |simU| (tol {TOL_U[path]:.0e}; worst at "
+            f"scenario {s}, step {k})")
+        check(bool((worst <= TOL_U[path] * scale).all()),
+              f"{path}: max |simU {label}| beyond the tolerance")
 
-    _, lg = cpu[f32].run_from(move_carry(carry0, "cpu", f32), CPU_STEPS)
-    drift = (log_settle.simU[:, :CPU_STEPS].double().cpu() - lg.simU.double()).abs()
-    say(f"[cpu] free float32 run from the same initial states: max |simU card - cpu| "
+    _, lg = cpu[f32].run_from(move_carry(carry0, "cpu", f32), n)
+    drift = (log_settle.simU[:, :n].double().cpu() - lg.simU.double()).abs()
+    say(f"[cpu/{path}] free float32 run from the same initial states: max |simU card - cpu| "
         f"{float(drift.max()):.3e} (step 0: {float(drift[:, 0].max()):.3e}); "
         f"{int((drift.amax(dim=(1, 2)) > 1e-2).sum())} of {B} scenarios beyond 1e-2")
 
@@ -424,12 +500,18 @@ def main():
                 say(f"[build] {name}: {line.strip()}")
 
     results = kernel_phase(dev)
-    launches, sim, carry0, log_settle = loop_phase(dev)
-    cpu_phase(sim, carry0, log_settle)
-    check(set(results) == set(launches), "kernel list and launch counters differ")
-    for name, n in launches.items():
-        results[name]["launches"] = n
-    say(json.dumps({"kernels": [results[k] for k in launches]}))
+    per_path = {}
+    for path in PATHS:
+        launches, sim, carry0, log_settle = loop_phase(dev, path)
+        cpu_phase(path, sim, carry0, log_settle)
+        per_path[path] = launches
+    check(set(results) == set(build.LAUNCHES), "kernel list and launch counters differ")
+    for name in build.LAUNCHES:
+        n = {path: per_path[path][name] for path in PATHS}
+        check(sum(n.values()) > 0, f"kernel {name} was launched on no path")
+        results[name]["launches"] = sum(n.values())
+        results[name]["launches_per_path"] = n
+    say(json.dumps({"kernels": [results[k] for k in build.LAUNCHES]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -65,8 +65,10 @@ def test_nominal_closed_loop_200_steps_matches_jax():
 
 def test_port_imports_without_jax_and_needs_cuda_by_default():
     """The whole package imports with `jax` and `tum_control_tpu` blocked,
-    loads neither, and its entry point raises without a CUDA device unless
-    the caller asks for the CPU."""
+    loads neither, and its entry points (build_simulation, build_controller
+    for both controllers, the convert functions) and constructors
+    (GGTables, NominalNMPC, StochasticNMPC) raise without a CUDA device
+    unless the caller names a device."""
     code = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
 
@@ -83,15 +85,46 @@ def test_port_imports_without_jax_and_needs_cuda_by_default():
             importlib.import_module(m.name)
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tum_control_tpu")]
         assert not bad, bad
-        from tum_control_tpu_torch.api import build_simulation
+        import numpy as np
+        from tum_control_tpu_torch import config as cfg, convert
+        from tum_control_tpu_torch.api import build_controller, build_simulation
         from tum_control_tpu_torch.config import MPCConfig, SimConfig
-        try:
-            build_simulation(SimConfig(), MPCConfig())
-        except RuntimeError as e:
-            assert "CUDA" in str(e)
-        else:
-            raise AssertionError("build_simulation ran without a CUDA device")
-        build_simulation(SimConfig(), MPCConfig(), device="cpu")
+        from tum_control_tpu_torch.controllers.common import GGTables
+        from tum_control_tpu_torch.controllers.nominal import NominalNMPC
+        from tum_control_tpu_torch.controllers.snmpc import StochasticNMPC
+
+        def needs_cuda(name, fn):
+            try:
+                fn()
+            except RuntimeError as e:
+                assert "CUDA" in str(e), (name, e)
+            else:
+                raise AssertionError(name + " ran without a CUDA device")
+
+        sim = SimConfig()
+        snmpc = MPCConfig(controller="snmpc")
+        vp = cfg.load_vehicle_params(cfg.DEFAULT_CONFIG_PATH, sim.veh_params_file_MPC)
+        tp = cfg.load_tire_params(cfg.DEFAULT_CONFIG_PATH, sim.tire_params_file_MPC)
+        table = cfg.load_gg_table(cfg.DEFAULT_CONFIG_PATH, snmpc.lookuptable_gg_limits)
+        gg_cpu = GGTables(*table, device="cpu")
+        z = lambda *s: np.zeros(s)
+        state = dict(X=z(2, 39, 88), U=z(2, 38, 2), warm={k: z(2, 154) for k in (
+            "su", "sl", "lam_u", "lam_l", "mu_u", "mu_l")})
+        carry = dict(ctrl_state=state, x_sim=z(2, 7), x_dist=z(2, 7), x_est=z(2, 8),
+                     est_buf=z(2, 8, 15), est_count=np.zeros(2, np.int32), pose=z(2, 2))
+        needs_cuda("build_simulation", lambda: build_simulation(sim, MPCConfig()))
+        needs_cuda("build_simulation snmpc", lambda: build_simulation(sim, snmpc))
+        needs_cuda("build_controller snmpc", lambda: build_controller(snmpc, sim))
+        needs_cuda("GGTables", lambda: GGTables(*table))
+        needs_cuda("NominalNMPC", lambda: NominalNMPC(MPCConfig(), 38, 0.08, vp, tp, gg_cpu))
+        needs_cuda("StochasticNMPC", lambda: StochasticNMPC(snmpc, 38, 0.08, vp, tp, gg_cpu))
+        needs_cuda("convert.sim_carry", lambda: convert.sim_carry(carry))
+        needs_cuda("convert.rti_state", lambda: convert.rti_state(state))
+        needs_cuda("convert.gg_tables", lambda: convert.gg_tables(dict(zip(
+            ("vel", "ax_max", "ax_min", "ay_max"), table))))
+        build_simulation(sim, MPCConfig(), device="cpu")
+        build_simulation(sim, snmpc, device="cpu")
+        assert convert.sim_carry(carry, device="cpu").ctrl_state.X.shape == (2, 39, 88)
         print("ISOLATED-OK")
     """)
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each wrapper against its plain
 PyTorch version on the same CUDA float32 inputs, the dispatch rule's
-refusals, the launch counters, and a short closed loop.
+refusals, the launch counters, and a short closed loop of each ported
+controller (nominal: K1-K5; SNMPC: K1, K3-K6).
 
 Marked `cuda`; without a CUDA device every test skips. On a GPU machine:
 
@@ -17,7 +18,9 @@ from tum_control_tpu_torch.api import build_controller, build_simulation
 from tum_control_tpu_torch.config import MPCConfig, SimConfig
 from tum_control_tpu_torch.ops.kernels import build
 from tum_control_tpu_torch.ops.kernels.chol import chol_solve, chol_solve_ref, cholesky, cholesky_ref
-from tum_control_tpu_torch.ops.kernels.condense import condense, condense_ref
+from tum_control_tpu_torch.ops.kernels.condense import (
+    condense, condense_from, condense_from_ref, condense_ref,
+)
 from tum_control_tpu_torch.parallel.mesh import batched_scenarios
 
 pytestmark = pytest.mark.cuda
@@ -78,6 +81,43 @@ def test_linearize_and_condense_kernels(dev):
     _close(G, Gp, 1e-4)
 
 
+@pytest.mark.parametrize("B,N2,nz,col0", [(3, 5, 16, 4), (128, 33, 76, 10)])
+def test_condense_from_kernel(dev, B, N2, nz, col0):
+    """K6 against its plain version, small and at SNMPC's tail shapes, from
+    a carry Gamma0 that is nonzero in its first col0 columns."""
+    rng = np.random.default_rng(4)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    A = t(0.95 * np.eye(8) + rng.normal(0, 0.03, (B, N2, 8, 8)))
+    Bm = t(rng.normal(0, 1, (B, N2, 8, 2)))
+    xi = t(rng.normal(0, 0.1, (B, N2, 8)))
+    e0 = t(rng.normal(0, 1, (B, 8)))
+    G0 = np.zeros((B, 8, nz))
+    G0[..., :col0] = rng.normal(0, 1, (B, 8, col0))
+    G0 = t(G0)
+    build.reset_launches()
+    e, G = condense_from(A, Bm, xi, e0, G0, col0)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["condense_from"] == 1
+    ep, Gp = condense_from_ref(A, Bm, xi, e0, G0, col0)
+    _close(e, ep, 2e-5)
+    _close(G, Gp, 2e-5)
+    assert torch.equal(G[:, 0], G0) and torch.equal(e[:, 0], e0)
+
+
+def test_condense_refuses_wide_states_on_the_card(dev):
+    """nx = 88 (SNMPC's dense stack) exceeds K2's shared-memory layout:
+    `condense` raises on the card and launches nothing."""
+    g = torch.Generator(dev).manual_seed(5)
+    A = torch.eye(88, device=dev) + 0.01 * torch.randn(2, 4, 88, 88, device=dev, generator=g)
+    Bm = torch.randn(2, 4, 88, 2, device=dev, generator=g)
+    xi = torch.randn(2, 4, 88, device=dev, generator=g)
+    d0 = torch.randn(2, 88, device=dev, generator=g)
+    build.reset_launches()
+    with pytest.raises(ValueError):
+        condense(A, Bm, xi, d0)
+    assert build.LAUNCHES["condense"] == 0
+
+
 def test_dispatch_refuses_what_the_kernels_do_not_take(dev):
     H = _spd(2, 8, 3, dev)
     with pytest.raises(TypeError):
@@ -88,13 +128,23 @@ def test_dispatch_refuses_what_the_kernels_do_not_take(dev):
         chol_solve(H, torch.zeros(2, 8))  # one tensor on the CPU
 
 
-def test_short_closed_loop_goes_through_every_kernel(dev):
-    sim, _, _, traj, _ = build_simulation(SimConfig(sim_mode=0), MPCConfig())
+# launches over 5 closed-loop steps, per controller: one K1 and one
+# condensing launch per step, 3 IPM iterations (K3 + K4) and one polish (K3 + K5)
+PATH_LAUNCHES = {
+    "nominal": {"linearize": 5, "condense": 5, "condense_from": 0, "cholesky": 20,
+                "chol_solve": 5, "ipm_iteration": 15},
+    "snmpc": {"linearize": 5, "condense": 0, "condense_from": 5, "cholesky": 20,
+              "chol_solve": 5, "ipm_iteration": 15},
+}
+
+
+@pytest.mark.parametrize("controller", ["nominal", "snmpc"])
+def test_short_closed_loop_goes_through_every_kernel(dev, controller):
+    sim, _, _, traj, _ = build_simulation(SimConfig(sim_mode=0), MPCConfig(controller=controller))
     x0m, x0s = batched_scenarios(traj, 4, dtype=torch.float32, device=dev)
     build.reset_launches()
     carry, log = sim.run(x0m, x0s, 5)
     torch.cuda.synchronize()
-    assert build.LAUNCHES == {"linearize": 5, "condense": 5, "cholesky": 20, "chol_solve": 5,
-                              "ipm_iteration": 15}
+    assert build.LAUNCHES == PATH_LAUNCHES[controller]
     assert (log.simSolverDebug[..., 4] == 0).all()
     assert torch.isfinite(log.simU).all()

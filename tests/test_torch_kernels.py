@@ -170,5 +170,38 @@ def test_wrappers_dispatch_by_tensor():
     with pytest.raises(ValueError):
         build.use_kernel(H, torch.empty(3, device="meta"))
     assert all(v == 0 for v in build.LAUNCHES.values())
-    assert set(build.LAUNCHES) == {"linearize", "condense", "cholesky", "chol_solve",
-                                   "ipm_iteration"}
+    assert set(build.LAUNCHES) == {"linearize", "condense", "condense_from", "cholesky",
+                                   "chol_solve", "ipm_iteration"}
+
+
+@pytest.mark.parametrize("nx,to_kernel", [(8, True), (16, True), (17, False), (88, False)])
+def test_k2_condense_refuses_wide_states(monkeypatch, nx, to_kernel):
+    """On the card, `condense` takes a state of at most 16 (the JAX
+    package's MAX_NX_FAST) to K2 and refuses a wider one (SNMPC's dense
+    88-state stack) with a ValueError; on the CPU every width goes to the
+    plain version. The card's dispatch is stood in for here: `use_kernel`
+    answers yes as for CUDA float32 tensors, and loading the kernel's
+    library stops the call, which shows the launch was reached."""
+    from tum_control_tpu_torch.ops.kernels import condense as cmod
+
+    rng = np.random.default_rng(15)
+    Bt, N, nu = 2, 4, 2
+    A = T(np.eye(nx) + 0.1 * rng.standard_normal((Bt, N, nx, nx)))
+    args = (A, T(rng.standard_normal((Bt, N, nx, nu))), T(rng.standard_normal((Bt, N, nx))),
+            T(rng.standard_normal((Bt, nx))))
+    build.reset_launches()
+    e, G = cmod.condense(*args)
+    e_r, G_r = cmod.condense_ref(*args)
+    assert torch.equal(e, e_r) and torch.equal(G, G_r)
+
+    class Launched(Exception):
+        pass
+
+    def library(name):
+        raise Launched(name)
+
+    monkeypatch.setattr(cmod.build, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(cmod.build, "library", library)
+    with pytest.raises(Launched if to_kernel else ValueError):
+        cmod.condense(*args)
+    assert build.LAUNCHES["condense"] == 0

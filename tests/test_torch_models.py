@@ -127,7 +127,7 @@ def test_gg_interp_and_acc_constraints(shape):
     clamped outside, for values and forward-mode slopes."""
     vel, ax_max, ax_min, ay_max = tcfg.load_gg_table(CFG, "EDGAR/ggv.csv")
     ggj = jcommon.GGTables(vel, ax_max, ax_min, ay_max)
-    ggt = tcommon.GGTables(vel, ax_max, ax_min, ay_max, dtype=torch.float64)
+    ggt = tcommon.GGTables(vel, ax_max, ax_min, ay_max, device="cpu", dtype=torch.float64)
     rng = np.random.default_rng(4)
     v = np.concatenate([rng.uniform(vel[0] - 5, vel[-1] + 5, 40), vel[:5], [vel[-1]]])
     a_lon = rng.normal(0, 3, v.shape)

@@ -108,7 +108,7 @@ def _engine_case(B=3, bad=None):
     yref, yref_e = tctrl.make_yref(win)
     x0m = x0.numpy() + rng.normal(0, 0.05, x0.shape)
 
-    t_out = tctrl.engine.solve_full(convert.rti_state(state_np, dtype=torch.float64),
+    t_out = tctrl.engine.solve_full(convert.rti_state(state_np, device="cpu", dtype=torch.float64),
                                     T(x0m), yref, yref_e)
     jstate = JRTIState(X=X, U=U, warm=jipm.IPMWarm(*(warm[k] for k in tipm.IPMWarm._fields)))
     j_out = jax.jit(jax.vmap(jctrl.engine.solve_full))(jstate, x0m, yref.numpy(), yref_e.numpy())

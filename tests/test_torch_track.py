@@ -141,12 +141,12 @@ def test_convert_params_gg_and_trajectory():
     ggj = JGG(*jcfg.load_gg_table(jcfg.DEFAULT_CONFIG_PATH, "EDGAR/ggv.csv"))
     ggt = convert.gg_tables({k: np.asarray(getattr(ggj, k)) for k in ("vel", "ax_max", "ax_min",
                                                                        "ay_max")},
-                            dtype=torch.float64)
+                            device="cpu", dtype=torch.float64)
     v = np.linspace(0, 40, 17)
     np.testing.assert_array_equal(ggt.ay_lim(torch.tensor(v)).numpy(), np.asarray(ggj.ay_lim(v)))
     _, tj, tt = _load("modena")
     tc = convert.ref_trajectory({k: np.asarray(v) for k, v in tj._asdict().items()},
-                                dtype=torch.float64)
+                                device="cpu", dtype=torch.float64)
     for f in ("pos", "yaw", "v", "acc", "seg_time", "cum_time"):
         assert torch.equal(getattr(tc, f), getattr(tt, f)), f
     assert tc.n_valid == tt.n_valid

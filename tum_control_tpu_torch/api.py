@@ -1,9 +1,10 @@
 """High-level assembly: configs -> controller + closed-loop simulation
-(port of tum_control_tpu/api.py; this slice builds the nominal controller).
+(port of tum_control_tpu/api.py; this slice builds the nominal and the
+stochastic (SNMPC) controllers).
 
 Everything runs on `cuda` unless the caller passes a device (the CPU tests
 pass `device="cpu"`); without a CUDA device and without an explicit device,
-`build_controller` and `build_simulation` raise.
+`build_controller` and `build_simulation` raise (device.py).
 """
 from __future__ import annotations
 
@@ -16,21 +17,10 @@ from tum_control_tpu_torch.config import (
     MPCConfig, SimConfig, load_gg_table, load_tire_params, load_vehicle_params,
 )
 from tum_control_tpu_torch.controllers.common import GGTables
+from tum_control_tpu_torch.device import resolve_device
 from tum_control_tpu_torch.sim.closed_loop import ClosedLoopSim
 from tum_control_tpu_torch.sim.disturbances import disturbance_config
 from tum_control_tpu_torch.track.trajectory import initial_state, load_ref_trajectory, load_track
-
-
-def resolve_device(device=None) -> torch.device:
-    """`device` as given, else cuda; raises when cuda is asked for implicitly
-    and there is none."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the port runs on the GPU unless device='cpu' is passed"
-        )
-    return torch.device("cuda")
 
 
 def build_controller(mpc_cfg: MPCConfig, sim_cfg: SimConfig, config_path: str = None,
@@ -47,7 +37,12 @@ def build_controller(mpc_cfg: MPCConfig, sim_cfg: SimConfig, config_path: str = 
 
         ctrl = NominalNMPC(mpc_cfg, sim_cfg.N, sim_cfg.Ts_MPC, vp, tp, gg, device=device,
                            dtype=dtype)
-    elif name in ("snmpc", "rnmpc"):
+    elif name == "snmpc":
+        from tum_control_tpu_torch.controllers.snmpc import StochasticNMPC
+
+        ctrl = StochasticNMPC(mpc_cfg, sim_cfg.N, sim_cfg.Ts_MPC, vp, tp, gg, device=device,
+                              dtype=dtype)
+    elif name == "rnmpc":
         raise NotImplementedError(f"controller '{name}' waits for its slice of the port")
     else:
         raise ValueError(f"unknown controller '{mpc_cfg.controller}'")

@@ -20,6 +20,7 @@ from tum_control_tpu_torch.config import MPCConfig
 from tum_control_tpu_torch.controllers.common import (
     GGTables, N_H, acc_bounds, acc_constraints, wrap_2pi,
 )
+from tum_control_tpu_torch.device import resolve_device
 from tum_control_tpu_torch.ops.kernels.linearize import LinearizeRollout
 from tum_control_tpu_torch.ops.rti import BIG, OCPFunctions, RTIEngine, RTIState
 from tum_control_tpu_torch.params import TireParams, VehicleParams
@@ -36,7 +37,8 @@ class ControllerOutput(NamedTuple):
 
 
 class NominalNMPC:
-    """Batched nominal NMPC; `state` is an RTIState of (B, ...) tensors."""
+    """Batched nominal NMPC; `state` is an RTIState of (B, ...) tensors. Its
+    tensors live on `device` (cuda unless named, device.py)."""
 
     nx = 8
     nu = 2
@@ -53,6 +55,7 @@ class NominalNMPC:
         shape = mpc_cfg.combined_acc_limits
         nh = N_H[shape]
         self.nh = nh
+        device = resolve_device(device)
 
         def y_stage(x, u):
             return torch.cat([x[..., 0:2], wrap_2pi(x[..., 2:3]), x[..., 3:4], u], dim=-1)

@@ -3,8 +3,10 @@
 Every function takes numpy arrays and plain dicts (e.g. `nt._asdict()` of a
 JAX NamedTuple with each leaf passed through `np.asarray`), never JAX
 objects, and returns the port's records on the requested device/dtype.
-Arrays are batch-first, as a vmapped JAX run produces them; add the batch
-axis to the state of an unbatched run first.
+The device is `cuda` unless the caller names one (device.py): without a
+CUDA device, a call that names none raises. Arrays are batch-first, as a
+vmapped JAX run produces them; add the batch axis to the state of an
+unbatched run first.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import numpy as np
 import torch
 
 from tum_control_tpu_torch.controllers.common import GGTables
+from tum_control_tpu_torch.device import resolve_device
 from tum_control_tpu_torch.ops.ipm import IPMWarm
 from tum_control_tpu_torch.ops.rti import RTIState
 from tum_control_tpu_torch.params import TireParams, VehicleParams
@@ -41,6 +44,7 @@ def gg_tables(d: dict, device=None, dtype=None) -> GGTables:
 
 def ref_trajectory(d: dict, device=None, dtype=None) -> RefTrajectory:
     """From {pos, yaw, v, acc, seg_time, cum_time, n_valid}."""
+    device = resolve_device(device)
     return RefTrajectory(
         **{k: _t(d[k], dtype, device) for k in ("pos", "yaw", "v", "acc", "seg_time", "cum_time")},
         n_valid=int(np.asarray(d["n_valid"])),
@@ -48,7 +52,10 @@ def ref_trajectory(d: dict, device=None, dtype=None) -> RefTrajectory:
 
 
 def rti_state(d: dict, device=None, dtype=None) -> RTIState:
-    """From {X (B,N+1,nx), U (B,N,nu), warm: {su, sl, lam_u, lam_l, mu_u, mu_l}}."""
+    """From {X (B,N+1,nx), U (B,N,nu), warm: {su, sl, lam_u, lam_l, mu_u, mu_l}};
+    nx is 8 for the nominal controller, 8 (n_samples + 1) for SNMPC's
+    stacked state."""
+    device = resolve_device(device)
     return RTIState(
         X=_t(d["X"], dtype, device),
         U=_t(d["U"], dtype, device),
@@ -60,7 +67,7 @@ def sim_carry(d: dict, seed: int = 0, device=None, dtype=None) -> SimCarry:
     """From {ctrl_state: (as rti_state), x_sim, x_dist, x_est, est_buf
     (B,8,15), est_count (B,), pose}. A JAX PRNG key has no torch
     counterpart: the disturbance generator is seeded from `seed`."""
-    device = torch.device("cpu") if device is None else torch.device(device)
+    device = resolve_device(device)
     return SimCarry(
         ctrl_state=rti_state(d["ctrl_state"], device, dtype),
         extra=None,

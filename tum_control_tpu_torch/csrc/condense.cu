@@ -1,26 +1,36 @@
-// K2: full condensing of the stage sensitivities.
+// K2 and K6: condensing of the stage sensitivities.
 //
-// Replaces ops/pallas_kernels/condense.py::_make_kernel (launched by
+// K2 replaces ops/pallas_kernels/condense.py::_make_kernel (launched by
 // _condense_tpu) of the JAX package. Per scenario:
 //   e_0 = d0,  Gam_0 = 0,
 //   e_{k+1} = A_k e_k + xi_k,  Gam_{k+1} = A_k Gam_k + B_k E_k,
 // where E_k selects the columns k*nu .. (k+1)*nu of Gam. Outputs every stage
 // 0..N, including stage 0 and the zero columns past k*nu.
 //
-// What bounds it: bytes. Per scenario it writes (N+1) nx nz floats of Gam
-// (0.47 MB at N=38, nx=8, nu=2), against nx^2 nz FMAs per stage; the
-// recurrence is sequential in k. Design: one block per scenario; A, B, xi of
-// the scenario and a double-buffered Gam_k (nx x nz, 2.4 KB) stay in shared
-// memory across all stages, one thread per Gam entry, and each stage's Gam
-// goes to device memory once, in coalesced rows.
+// K6 replaces ops/pallas_kernels/condense.py::_make_kernel_from (launched by
+// _condense_tpu_from): the same recurrence over a stage sub-range t = 0..N2-1
+// from a carry (e0, Gam0), with B_t placed in the columns col0 + t*nu ..
+// col0 + (t+1)*nu of a Gam that is nz wide. SNMPC condenses its nominal tail
+// beyond the uncertainty horizon with it; Gam0 is the head's carry and is
+// nonzero in its first col0 columns, so no column may be assumed zero.
+//
+// What bounds both: bytes. Per scenario they write (N+1) nx nz floats of Gam
+// (95 KB at N=38, nx=8, nu=2; K6 at N2=33, nz=76: 83 KB), against
+// nx^2 nz FMAs per stage; the recurrence is sequential in the stage. Design:
+// one block per scenario; A, B, xi of the scenario and a double-buffered
+// Gam_k (nx x nz, 2.4 KB) stay in shared memory across all stages, one thread
+// per Gam entry, and each stage's Gam goes to device memory once, in
+// coalesced rows. One kernel body serves both: FROM selects the initial carry
+// (loaded for K6, (d0, 0) for K2), col0 is 0 for K2.
 #include <cuda_runtime.h>
 
+template <bool FROM>
 __global__ void condense_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
-                                const float* __restrict__ xi, const float* __restrict__ d0,
-                                float* __restrict__ e_out, float* __restrict__ gam_out,
-                                int N, int nx, int nu) {
+                                const float* __restrict__ xi, const float* __restrict__ e0,
+                                const float* __restrict__ G0, float* __restrict__ e_out,
+                                float* __restrict__ gam_out, int N, int nx, int nu, int nz,
+                                int col0) {
   extern __shared__ float sm[];
-  const int nz = N * nu;
   const int b = blockIdx.x;
   const int tid = threadIdx.x, bs = blockDim.x;
   float* sA = sm;                    // N nx nx
@@ -35,8 +45,8 @@ __global__ void condense_kernel(const float* __restrict__ A, const float* __rest
   for (int i = tid; i < N * nx * nx; i += bs) sA[i] = Ab[i];
   for (int i = tid; i < N * nx * nu; i += bs) sB[i] = Bb[i];
   for (int i = tid; i < N * nx; i += bs) sxi[i] = xib[i];
-  for (int i = tid; i < nx * nz; i += bs) g[0][i] = 0.0f;
-  for (int i = tid; i < nx; i += bs) e[0][i] = d0[(long)b * nx + i];
+  for (int i = tid; i < nx * nz; i += bs) g[0][i] = FROM ? G0[(long)b * nx * nz + i] : 0.0f;
+  for (int i = tid; i < nx; i += bs) e[0][i] = e0[(long)b * nx + i];
   __syncthreads();
 
   float* eo = e_out + (long)b * (N + 1) * nx;
@@ -55,7 +65,7 @@ __global__ void condense_kernel(const float* __restrict__ A, const float* __rest
       const int i = idx / nz, z = idx - i * nz;
       float acc = 0.0f;
       for (int m = 0; m < nx; ++m) acc += Ak[i * nx + m] * gc[m * nz + z];
-      const int q = z - k * nu;
+      const int q = z - col0 - k * nu;
       if (q >= 0 && q < nu) acc += Bk[i * nu + q];
       gn[idx] = acc;
     }
@@ -68,20 +78,37 @@ __global__ void condense_kernel(const float* __restrict__ A, const float* __rest
   }
 }
 
-extern "C" int condense_f32(const float* A, const float* Bm, const float* xi, const float* d0,
-                            float* e_out, float* gam_out, int batch, int N, int nx, int nu,
-                            void* stream) {
+template <bool FROM>
+static int launch(const float* A, const float* Bm, const float* xi, const float* e0,
+                  const float* G0, float* e_out, float* gam_out, int batch, int N, int nx,
+                  int nu, int nz, int col0, void* stream) {
   if (batch <= 0) return 0;
-  const int nz = N * nu;
   const size_t smem =
       sizeof(float) * ((size_t)N * nx * nx + (size_t)N * nx * nu + (size_t)N * nx +
                        2 * (size_t)nx * nz + 2 * (size_t)nx);
-  cudaError_t err = cudaFuncSetAttribute(condense_kernel,
+  cudaError_t err = cudaFuncSetAttribute(condense_kernel<FROM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int threads = ((nx * nz + 31) / 32) * 32;
   if (threads > 1024) threads = 1024;
-  condense_kernel<<<batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      A, Bm, xi, d0, e_out, gam_out, N, nx, nu);
+  condense_kernel<FROM><<<batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      A, Bm, xi, e0, G0, e_out, gam_out, N, nx, nu, nz, col0);
   return (int)cudaGetLastError();
+}
+
+// K2: (e_0, Gam_0) = (d0, 0), nz = N nu.
+extern "C" int condense_f32(const float* A, const float* Bm, const float* xi, const float* d0,
+                            float* e_out, float* gam_out, int batch, int N, int nx, int nu,
+                            void* stream) {
+  return launch<false>(A, Bm, xi, d0, nullptr, e_out, gam_out, batch, N, nx, nu, N * nu, 0,
+                       stream);
+}
+
+// K6: (e_0, Gam_0) = (e0, G0) with G0 (batch, nx, nz), stage t's B in the
+// columns col0 + t nu .. col0 + (t+1) nu; the caller ensures col0 + N2 nu <= nz.
+extern "C" int condense_from_f32(const float* A, const float* Bm, const float* xi,
+                                 const float* e0, const float* G0, float* e_out, float* gam_out,
+                                 int batch, int N2, int nx, int nu, int nz, int col0,
+                                 void* stream) {
+  return launch<true>(A, Bm, xi, e0, G0, e_out, gam_out, batch, N2, nx, nu, nz, col0, stream);
 }

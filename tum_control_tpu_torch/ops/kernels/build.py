@@ -31,14 +31,16 @@ NVCC_FLAGS = (
 )
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {"linearize": 0, "condense": 0, "cholesky": 0, "chol_solve": 0, "ipm_iteration": 0}
+LAUNCHES = {"linearize": 0, "condense": 0, "condense_from": 0, "cholesky": 0, "chol_solve": 0,
+            "ipm_iteration": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points of each library: argument types (every pointer and the
 # stream as c_void_p); each returns the cudaError_t of its launch as int
 SIGNATURES = {
     "linearize": {"linearize_f32": [_P, _P, _P, _I, _P, _I, _P]},
-    "condense": {"condense_f32": [_P] * 6 + [_I] * 4 + [_P]},
+    "condense": {"condense_f32": [_P] * 6 + [_I] * 4 + [_P],
+                 "condense_from_f32": [_P] * 7 + [_I] * 6 + [_P]},
     "chol": {"cholesky_f32": [_P, _P, _I, _I, _P], "chol_solve_f32": [_P, _P, _P, _I, _I, _P]},
     "ipm_iter": {"ipm_iteration_f32": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _P]},
 }

@@ -1,7 +1,7 @@
-"""K2: batched full condensing of the OCP sensitivities.
+"""K2 and K6: batched condensing of the OCP sensitivities.
 
-Port of tum_control_tpu/ops/pallas_kernels/condense.py (`_make_kernel`,
-launched by `_condense_tpu`). Per scenario, the affine map from the stacked
+K2 ports tum_control_tpu/ops/pallas_kernels/condense.py `_make_kernel`
+(launched by `_condense_tpu`). Per scenario, the affine map from the stacked
 control deviations w = vec(dU) to the state deviations:
 
     dx_k = e_k + Gam_k w,   e_{k+1} = A_k e_k + xi_k,
@@ -9,11 +9,24 @@ control deviations w = vec(dU) to the state deviations:
 
   * `condense_ref`: the plain PyTorch version (the stage loop of the JAX
     package's `condense_scan_ref`, batched);
-  * `condense`: the wrapper. CPU tensors -> `condense_ref`; CUDA float32
-    tensors -> csrc/condense.cu; anything else raises.
+  * `condense`: the wrapper; CPU tensors -> `condense_ref`, CUDA float32
+    tensors -> csrc/condense.cu, anything else raises.
+
+K2 takes states of at most 16 (the JAX package's MAX_NX_FAST): SNMPC's
+dense 88-state stack would need 1.2 MB of shared memory in its
+one-block-per-scenario layout, above the 227 KB a block may have, so the
+wrapper refuses a wider state on the card. The dense SNMPC oracle runs on
+the CPU; SNMPC's main (structured) path condenses 8 states through K6.
+
+K6 ports `_make_kernel_from` (launched by `_condense_tpu_from`): the same
+recurrence over a stage sub-range from a carry (e0, Gam0), stage t's B in
+the columns col0 + t nu .. col0 + (t+1) nu of an nz-wide Gam:
+
+  * `condense_from_ref`: the plain version (`condense_scan_from_ref`, batched);
+  * `condense_from`: the wrapper; CPU -> `condense_from_ref`, CUDA float32
+    -> csrc/condense.cu (`condense_from_f32`), anything else raises.
 """
 from __future__ import annotations
-
 
 import torch
 
@@ -24,25 +37,18 @@ def condense_ref(A, B, xi, d0):
     """A (Bt,N,nx,nx), B (Bt,N,nx,nu), xi (Bt,N,nx), d0 (Bt,nx)
     -> e (Bt,N+1,nx), Gam (Bt,N+1,nx,nz)."""
     Bt, N, nx, nu = B.shape
-    nz = N * nu
-    e = d0
-    gam = torch.zeros((Bt, nx, nz), dtype=A.dtype, device=A.device)
-    es, gams = [e], [gam]
-    for k in range(N):
-        e = torch.matmul(A[:, k], e[..., None])[..., 0] + xi[:, k]
-        gam = torch.matmul(A[:, k], gam)
-        gam[:, :, k * nu:(k + 1) * nu] += B[:, k]
-        es.append(e)
-        gams.append(gam)
-    return torch.stack(es, dim=1), torch.stack(gams, dim=1)
+    G0 = torch.zeros((Bt, nx, N * nu), dtype=A.dtype, device=A.device)
+    return condense_from_ref(A, B, xi, d0, G0, 0)
 
 
 def condense_cuda(A, B, xi, d0):
-    """Launch csrc/condense.cu on contiguous CUDA float32 tensors."""
+    """Launch csrc/condense.cu (K2) on contiguous CUDA float32 tensors."""
     Bt, N, nx, nu = B.shape
     if A.shape != (Bt, N, nx, nx) or xi.shape != (Bt, N, nx) or d0.shape != (Bt, nx):
         raise ValueError("condense: inconsistent shapes "
                          f"{tuple(A.shape)} {tuple(B.shape)} {tuple(xi.shape)} {tuple(d0.shape)}")
+    if nx > 16:
+        raise ValueError(f"condense: K2 takes nx <= 16 (its shared-memory layout), got nx = {nx}")
     nz = N * nu
     e = torch.empty((Bt, N + 1, nx), dtype=A.dtype, device=A.device)
     gam = torch.empty((Bt, N + 1, nx, nz), dtype=A.dtype, device=A.device)
@@ -56,7 +62,53 @@ def condense_cuda(A, B, xi, d0):
 
 
 def condense(A, B, xi, d0):
-    """Batched condensing; dispatches by the tensors' device (module doc)."""
+    """Batched condensing; dispatches by device (module doc)."""
     if build.use_kernel(A, B, xi, d0):
         return condense_cuda(A, B, xi, d0)
     return condense_ref(A, B, xi, d0)
+
+
+def condense_from_ref(A, B, xi, e0, G0, col0: int):
+    """A (Bt,N2,nx,nx), B (Bt,N2,nx,nu), xi (Bt,N2,nx), e0 (Bt,nx),
+    G0 (Bt,nx,nz) -> e (Bt,N2+1,nx), Gam (Bt,N2+1,nx,nz); entry 0 is
+    (e0, G0)."""
+    N2, nu = B.shape[1], B.shape[3]
+    e, gam = e0, G0
+    es, gams = [e], [gam]
+    for t in range(N2):
+        e = torch.matmul(A[:, t], e[..., None])[..., 0] + xi[:, t]
+        gam = torch.matmul(A[:, t], gam)
+        c = col0 + t * nu
+        gam[:, :, c:c + nu] += B[:, t]
+        es.append(e)
+        gams.append(gam)
+    return torch.stack(es, dim=1), torch.stack(gams, dim=1)
+
+
+def condense_from_cuda(A, B, xi, e0, G0, col0: int):
+    """Launch csrc/condense.cu (K6) on contiguous CUDA float32 tensors."""
+    Bt, N2, nx, nu = B.shape
+    nz = G0.shape[-1]
+    if (A.shape != (Bt, N2, nx, nx) or xi.shape != (Bt, N2, nx) or e0.shape != (Bt, nx)
+            or G0.shape != (Bt, nx, nz)):
+        raise ValueError("condense_from: inconsistent shapes " + " ".join(
+            str(tuple(t.shape)) for t in (A, B, xi, e0, G0)))
+    if col0 < 0 or col0 + N2 * nu > nz:
+        raise ValueError(f"condense_from: columns {col0} .. {col0 + N2 * nu} exceed nz = {nz}")
+    e = torch.empty((Bt, N2 + 1, nx), dtype=A.dtype, device=A.device)
+    gam = torch.empty((Bt, N2 + 1, nx, nz), dtype=A.dtype, device=A.device)
+    fn = build.library("condense").condense_from_f32
+    with torch.cuda.device(A.device):
+        status = fn(build.ptr(A), build.ptr(B), build.ptr(xi), build.ptr(e0), build.ptr(G0),
+                    build.ptr(e), build.ptr(gam), Bt, N2, nx, nu, nz, int(col0),
+                    build.stream_of(A))
+    build.check_status("condense_from_f32", status)
+    build.LAUNCHES["condense_from"] += 1
+    return e, gam
+
+
+def condense_from(A, B, xi, e0, G0, col0: int):
+    """Init-carry condensing over a stage sub-range; dispatches by device."""
+    if build.use_kernel(A, B, xi, e0, G0):
+        return condense_from_cuda(A, B, xi, e0, G0, col0)
+    return condense_from_ref(A, B, xi, e0, G0, col0)

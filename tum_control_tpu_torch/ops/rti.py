@@ -2,19 +2,23 @@
 (batched port of tum_control_tpu/ops/rti.py).
 
 One `solve_full` per control step, for B scenarios at once:
-  1. linearize the shooting dynamics at the stored iterate (X, U) with the
-     controller's fused rollout + sensitivity function (K1),
+  1. linearize the shooting dynamics at the stored iterate (X, U): the
+     controller's fused rollout + sensitivity function (K1), else its
+     `dyn_jac`,
   2. condense the state deviations onto w = vec(dU) (K2),
   3. assemble the Gauss-Newton QP through the selection-structured cost
-     (`y_select`) and the state-constraint rows,
+     (`y_select`) or forward-mode AD of `y_stage`, and the state-constraint
+     rows through forward-mode AD of `con_stage`,
   4. solve it with the interior-point method and one Newton polish
      (ops/ipm.py: K3, K4, K5), update the iterate with the linear QP step,
   5. reset a scenario whose result is non-finite, exploded or whose relative
      KKT residual exceeds `kkt_fail_rel` (acados status 3), per scenario.
 
-This slice ports the engine paths the nominal NONLINEAR_LS controller
-takes; the other `OCPFunctions` hooks of the JAX package raise
-NotImplementedError.
+A controller may replace steps 1-3 by `build_qp` + `expand_dx` (SNMPC's
+structured path: K1 + K6). The JAX package's `lin_condense`, `y_jac` and
+`con_jac` hooks are left out: no path of the port would take them. The
+`resid_stage` (EXTERNAL cost) branch, `lm_reg` and `QPMods` wait for their
+slices.
 """
 from __future__ import annotations
 
@@ -30,22 +34,35 @@ BIG = 1e12  # stands in for +/- inf bounds (inf would produce inf*0 NaNs)
 
 
 class OCPFunctions(NamedTuple):
-    """Controller-supplied batched problem functions (x (..., nx), u (..., nu)).
+    """Controller-supplied batched problem functions.
 
-    y_stage  : (x, u) -> (..., ny)   nonlinear-LS stage output
-    y_term   : (x) -> (..., ny_e)    nonlinear-LS terminal output
-    con_stage: (x) -> (..., nc)      state-only nonlinear constraints
+    A stage function takes x (..., K, nx) with the node axis second to last
+    (K = N nodes 0..N-1 for y_stage / dyn_jac, N+1 for con_stage) and u (..., N, nu); it may depend on the node
+    index only through the position on that axis (SNMPC's uncertainty
+    horizon is a static slice of it). Leading axes are batch axes.
+
+    y_stage  : (x, u) -> (..., N, ny)     nonlinear-LS stage output
+    y_term   : (x (..., nx)) -> (..., ny_e)  nonlinear-LS terminal output
+    con_stage: (x) -> (..., N+1, nc)      state-only nonlinear constraints
     lin_rollout: XU (B, N, nx+nu) -> (F (B, N, nx), J (B, N, nx, nx+nu))
+    dyn_jac  : (x, u) -> (F, A (..., N, nx, nx), B (..., N, nx, nu))
     y_select / y_select_term: state indices of the leading y rows, when
         y = [x[sel] (unit Jacobian), u]
+    build_qp : (X, U, x0, yref, yref_e, merged) -> (CondensedQP, aux), the
+        whole QP assembly; `merged` is the engine's (W, We, con_lb, con_ub,
+        con_z1, con_z2, u_lb, u_ub, u_z1, u_z2)
+    expand_dx: (aux, w (B, nz)) -> dX (B, N+1, nx); required with build_qp
     """
 
     y_stage: Callable
     y_term: Callable
     con_stage: Callable
-    lin_rollout: Callable
-    y_select: tuple
-    y_select_term: tuple
+    lin_rollout: Callable = None
+    dyn_jac: Callable = None
+    y_select: tuple = None
+    y_select_term: tuple = None
+    build_qp: Callable = None
+    expand_dx: Callable = None
 
 
 class RTIState(NamedTuple):
@@ -67,13 +84,14 @@ class SolverStats(NamedTuple):
 
 def jacobian_fwd(f, x):
     """Values and Jacobian of a per-row function f: (..., n) -> (..., m):
-    returns ((..., m), (..., m, n)). One forward-mode pass over the rows
-    repeated n times, row copy j carrying the unit tangent e_j."""
+    returns ((..., m), (..., m, n)). One forward-mode pass over n copies of
+    x stacked on a new leading axis, copy j carrying the unit tangent e_j;
+    the leading axis leaves f's node axis (second to last) in place."""
     n = x.shape[-1]
-    eye = torch.eye(n, dtype=x.dtype, device=x.device)
-    xr = x[..., None, :].expand(*x.shape[:-1], n, n).contiguous()
+    eye = torch.eye(n, dtype=x.dtype, device=x.device).view(n, *([1] * (x.dim() - 1)), n)
+    xr = x.expand(n, *x.shape).contiguous()
     y, dy = torch.func.jvp(f, (xr,), (eye.expand_as(xr).contiguous(),))
-    return y[..., 0, :], dy.transpose(-1, -2)
+    return y[0], torch.movedim(dy, 0, -1)
 
 
 class RTIEngine:
@@ -82,12 +100,15 @@ class RTIEngine:
     def __init__(self, funcs: OCPFunctions, N: int, nx: int, nu: int, W, We,
                  con_lb, con_ub, con_z1, con_z2, u_lb, u_ub, u_z1, u_z2,
                  newton_iters: int = 15, sqp_iters: int = 1, kkt_fail_rel: float = 1e4):
+        if (funcs.build_qp is None) != (funcs.expand_dx is None):
+            raise ValueError("OCPFunctions.build_qp and expand_dx must be provided together")
         self.funcs = funcs
         self.N, self.nx, self.nu = N, nx, nu
         self.nz = N * nu
         self.W, self.We = W, We
         self.con_lb, self.con_ub, self.con_z1, self.con_z2 = con_lb, con_ub, con_z1, con_z2
         self.u_lb, self.u_ub, self.u_z1, self.u_z2 = u_lb, u_ub, u_z1, u_z2
+        self.merged = (W, We, con_lb, con_ub, con_z1, con_z2, u_lb, u_ub, u_z1, u_z2)
         self.newton_iters = newton_iters
         self.sqp_iters = sqp_iters
         self.kkt_fail_rel = kkt_fail_rel
@@ -97,6 +118,8 @@ class RTIEngine:
         self.row_ub = torch.cat([con_ub.reshape(-1), u_ub.reshape(-1)])
         self.row_z1 = torch.cat([con_z1.reshape(-1), u_z1.reshape(-1)])
         self.row_z2 = torch.cat([con_z2.reshape(-1), u_z2.reshape(-1)])
+        # E_k = d(vec dU)/d(du_k): (N, nu, nz) selector
+        self.E = torch.eye(self.nz, dtype=W.dtype, device=W.device).reshape(N, nu, self.nz)
 
     # ------------------------------------------------------------------
     def init_state(self, x0) -> RTIState:
@@ -107,42 +130,79 @@ class RTIEngine:
         return RTIState(X=X, U=U, warm=init_warm(B, self.nc_total, x0.dtype, x0.device))
 
     def _linearize(self, state: RTIState):
-        nx = self.nx
-        XU = torch.cat([state.X[:, :-1], state.U], dim=2)
-        F, J = self.funcs.lin_rollout(XU)
-        return J[..., :nx].contiguous(), J[..., nx:].contiguous(), F - state.X[:, 1:]
+        f, nx = self.funcs, self.nx
+        if f.lin_rollout is not None:
+            XU = torch.cat([state.X[:, :-1], state.U], dim=2)
+            F, J = f.lin_rollout(XU)
+            return J[..., :nx].contiguous(), J[..., nx:].contiguous(), F - state.X[:, 1:]
+        F, A, Bm = f.dyn_jac(state.X[:, :-1], state.U)
+        return A, Bm, F - state.X[:, 1:]
+
+    def _zero_A(self, x):
+        """The A_lin of a path that never forms the stage sensitivities: zeros
+        of shape (B, N, nx, nx), as a broadcast view (no memory)."""
+        return x.new_zeros(()).expand(x.shape[0], self.N, self.nx, self.nx)
+
+    def _gn_assemble(self, r0, M, re0, Me):
+        """Condensed Gauss-Newton blocks from stage residuals (B, N, ny) and
+        Jacobians (B, N, ny, nz): H0 = M' W M + Me' We Me, g0 = M' W r + Me' We re."""
+        B, N, ny, nz = M.shape
+        Mf = M.reshape(B, N * ny, nz)
+        wts = self.W.repeat(N)
+        H0 = (torch.matmul((Mf * wts[:, None]).transpose(1, 2), Mf)
+              + torch.matmul((Me * self.We[:, None]).transpose(1, 2), Me))
+        g0 = mtv(Mf, wts * r0.reshape(B, -1)) + mtv(Me, self.We * re0)
+        return H0, g0
 
     def _build_qp(self, state: RTIState, x0, yref, yref_e):
+        """(qp, e, Gam, A_lin); on the build_qp path e holds its aux and Gam is None."""
+        f = self.funcs
         N, nx, nz = self.N, self.nx, self.nz
         B = x0.shape[0]
+        if f.build_qp is not None:
+            qp, aux = f.build_qp(state.X, state.U, x0, yref, yref_e, self.merged)
+            return qp, aux, None, self._zero_A(x0)
+        d0 = x0 - state.X[:, 0]
         A, Bm, xi = self._linearize(state)
-        e, Gam = condense(A, Bm, xi.contiguous(), (x0 - state.X[:, 0]).contiguous())
+        e, Gam = condense(A, Bm, xi.contiguous(), d0.contiguous())
 
-        # --- Gauss-Newton cost, selection-structured: y = [x[sel], u] ---
-        sel = list(self.funcs.y_select)
-        sel_e = list(self.funcs.y_select_term)
-        ns = len(sel)
-        Y = self.funcs.y_stage(state.X[:, :-1], state.U)            # (B, N, ny)
-        r_x = Y[..., :ns] - yref[..., :ns] + e[:, :N][..., sel]     # (B, N, ns)
-        r_u = Y[..., ns:] - yref[..., ns:]                          # (B, N, nu)
-        Wx, Wu = self.W[:ns], self.W[ns:]
-        Mf4 = Gam[:, :N][:, :, sel, :].reshape(B, N * ns, nz)
-        wtsx = Wx.repeat(N)
-        re0 = self.funcs.y_term(state.X[:, N]) - yref_e + e[:, N][:, sel_e]
-        Me = Gam[:, N][:, sel_e, :]                                 # (B, ny_e, nz)
-        H0 = (
-            torch.matmul((Mf4 * wtsx[:, None]).transpose(1, 2), Mf4)
-            + torch.matmul((Me * self.We[:, None]).transpose(1, 2), Me)
-            + torch.diag(Wu.repeat(N))
-        )
-        g0 = (
-            mtv(Mf4, wtsx * r_x.reshape(B, -1))
-            + (Wu * r_u).reshape(B, -1)
-            + mtv(Me, self.We * re0)
-        )
+        if f.y_select is not None:
+            # --- Gauss-Newton cost, selection-structured: y = [x[sel], u] ---
+            sel = list(f.y_select)
+            sel_e = list(f.y_select_term)
+            ns = len(sel)
+            Y = f.y_stage(state.X[:, :-1], state.U)                   # (B, N, ny)
+            r_x = Y[..., :ns] - yref[..., :ns] + e[:, :N][..., sel]     # (B, N, ns)
+            r_u = Y[..., ns:] - yref[..., ns:]                          # (B, N, nu)
+            Wx, Wu = self.W[:ns], self.W[ns:]
+            Mf4 = Gam[:, :N][:, :, sel, :].reshape(B, N * ns, nz)
+            wtsx = Wx.repeat(N)
+            re0 = f.y_term(state.X[:, N]) - yref_e + e[:, N][:, sel_e]
+            Me = Gam[:, N][:, sel_e, :]                                 # (B, ny_e, nz)
+            H0 = (
+                torch.matmul((Mf4 * wtsx[:, None]).transpose(1, 2), Mf4)
+                + torch.matmul((Me * self.We[:, None]).transpose(1, 2), Me)
+                + torch.diag(Wu.repeat(N))
+            )
+            g0 = (
+                mtv(Mf4, wtsx * r_x.reshape(B, -1))
+                + (Wu * r_u).reshape(B, -1)
+                + mtv(Me, self.We * re0)
+            )
+        else:
+            # --- Gauss-Newton cost from the output Jacobians ---
+            XU = torch.cat([state.X[:, :-1], state.U], dim=2)
+            Y, Jy = jacobian_fwd(lambda xu: f.y_stage(xu[..., :nx], xu[..., nx:]), XU)
+            Jyx, Jyu = Jy[..., :nx], Jy[..., nx:]
+            r0 = Y - yref + torch.matmul(Jyx, e[:, :N, :, None])[..., 0]
+            M = torch.matmul(Jyx, Gam[:, :N]) + torch.matmul(Jyu, self.E)  # (B, N, ny, nz)
+            ye, Jye = jacobian_fwd(f.y_term, state.X[:, N])
+            re0 = ye - yref_e + torch.matmul(Jye, e[:, N, :, None])[..., 0]
+            Me = torch.matmul(Jye, Gam[:, N])
+            H0, g0 = self._gn_assemble(r0, M, re0, Me)
 
         # --- constraint rows: value + Jacobian of con_stage at every node ---
-        C, Jc = jacobian_fwd(self.funcs.con_stage, state.X)        # (B,N+1,nc), (B,N+1,nc,nx)
+        C, Jc = jacobian_fwd(f.con_stage, state.X)                    # (B,N+1,nc), (B,N+1,nc,nx)
         c0_c = C + torch.sum(Jc * e[:, :, None, :], dim=-1)
         G = torch.matmul(Jc, Gam).reshape(B, -1, nz)
         c0 = torch.cat([c0_c.reshape(B, -1), state.U.reshape(B, -1)], dim=1)
@@ -193,7 +253,10 @@ class RTIEngine:
             )
             qp_iter_max = torch.maximum(qp_iter_max, ipm_stats.iters)
             gap_last = ipm_stats.gap
-            dX = e + torch.matmul(Gam, w[:, None, :, None])[..., 0]
+            if self.funcs.build_qp is not None:
+                dX = self.funcs.expand_dx(e, w)  # e holds build_qp's aux here
+            else:
+                dX = e + torch.matmul(Gam, w[:, None, :, None])[..., 0]
             it_state = RTIState(X=it_state.X + dX, U=it_state.U + w.reshape(B, self.N, self.nu),
                                 warm=warm_out)
         X_new, U_new = it_state.X, it_state.U
