@@ -7,26 +7,29 @@ Phases (any failure raises and the script exits non-zero):
   1. prints the card (`nvidia-smi` name and power limit) and the TF32
      setting, and builds the hand-written kernels from
      tum_control_tpu_torch/csrc with nvcc for sm_90a;
-  2. runs each kernel (K1-K6) at its closed loop's shapes (B = 128
+  2. runs each kernel (K1-K8) at its closed loop's shapes (B = 128
      scenarios; nominal: N = 38, nx = 8, nu = 2, nz = 76, 78 general rows;
      K1 also at SNMPC's 88 elements per scenario and one RK4 substep; K6 at
-     SNMPC's nominal tail, 33 stages from the carry of its 5 head stages) on
-     inputs from a seeded numpy generator, holds it against its plain
+     SNMPC's nominal tail, 33 stages from the carry of its 5 head stages;
+     K8 on K2's inputs, K7 on K3's and K5's, since no path launches them)
+     on inputs from a seeded numpy generator, holds it against its plain
      PyTorch version on the same inputs, and times kernel, plain version
-     and (for K3, K5) the PyTorch library call with CUDA events;
-  3. drives each ported controller's closed loop, the nominal NMPC and the
-     SNMPC: `build_simulation` on cuda in float32 with `batched_scenarios`
-     at B = 128, a settle run and a timed run, with the launch counters
-     reset just before and read just after; checks that the path's kernels
-     (and no other) were launched, solver health and finite logs; prints
-     solves/s and |lat_dev| p50/p99; takes a short torch.profiler window of
-     the same loop;
-  4. after each loop, reruns each of its first steps on the CPU (plain
-     versions) in float32 and float64 from the card's own carry at that step
-     and holds the card's inputs simU to both; prints how far a free float32
-     run from the same initial states drifts;
-  5. prints one {"kernels": [...]} line (launches per path) and, last, the
-     device line.
+     and (for K3, K5, K7) the PyTorch library call with CUDA events;
+  3. drives each ported path's closed loop (PATHS: the nominal NMPC, the
+     SNMPC, the R2NMPC and WMPC over the R2NMPC): `build_simulation` on
+     cuda in float32 with `batched_scenarios` at B = 128, a settle run and
+     a timed run, with the launch counters reset just before and read just
+     after; checks that the path's kernels (and no other) were launched,
+     solver health and finite logs; prints solves/s and |lat_dev| p50/p99
+     (WMPC: the weight switches and the action histogram); takes a short
+     torch.profiler window of the same loop;
+  4. after all loops, reruns each path's first steps on the CPU (plain
+     versions) in float64 (nominal and SNMPC: also in float32) from the
+     card's own carry at that step and holds the card's inputs simU to each
+     (WMPC: and its actions to the float64 run's);
+  5. prints the seconds each phase took, one {"kernels": [...]} line
+     (launches per path; K7 and K8, which no path launches, with 0 and
+     "path": null) and, last, the device line.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
@@ -54,13 +57,24 @@ NC = NCG + NZ
 # on 5 x 11 head + 33 tail elements per scenario, K6 on the 33-stage tail
 NS1, UPH = 11, 5
 N2, COL0 = N - UPH, UPH * NU
-# per path: settle steps, timed steps, steps rerun on the CPU
-PATHS = {"nominal": (100, 300, 20), "snmpc": (50, 200, 10)}
+# per path: settle steps, timed steps, steps rerun on the CPU (WMPC: 25, so
+# that its first policy update, at step 20, falls inside)
+PATHS = {"nominal": (50, 300, 20), "snmpc": (50, 200, 10), "rnmpc": (50, 200, 10),
+         "wmpc_rnmpc": (50, 200, 25)}
+# the MPCConfig of each path (Monteblanco, sim_mode 0, full width and depth)
+WMPC = dict(enable_WMPC=True, WMPC_model="data/wmpc_models/new_BO_F")
+PATH_CONFIG = {"nominal": {}, "snmpc": dict(controller="snmpc"), "rnmpc": dict(controller="rnmpc"),
+               "wmpc_rnmpc": dict(controller="rnmpc", **WMPC)}
 # the kernels each path must launch; every other counter must stay 0
+NOMINAL_KERNELS = ("linearize", "condense", "cholesky", "chol_solve", "ipm_iteration")
 PATH_KERNELS = {
-    "nominal": ("linearize", "condense", "cholesky", "chol_solve", "ipm_iteration"),
+    "nominal": NOMINAL_KERNELS,
     "snmpc": ("linearize", "condense_from", "cholesky", "chol_solve", "ipm_iteration"),
+    "rnmpc": NOMINAL_KERNELS,
+    "wmpc_rnmpc": NOMINAL_KERNELS,
 }
+# no JAX caller reaches these kernels; held in the kernel phase only
+OFF_PATH = {"condense_mxu", "cholesky_unblocked", "chol_solve_unblocked"}
 
 # tolerance of each kernel against its plain version on the same inputs, held
 # for every output on its own (for K1 every column of J) as
@@ -69,12 +83,18 @@ PATH_KERNELS = {
 # 1e-6 of its float64 result relative to that output's max (K4: 3e-6, its
 # directions go through a factor of cond ~1e3), so TOL leaves 10-30x of room
 TOL = {"linearize": 2e-5, "condense": 2e-5, "condense_from": 2e-5, "cholesky": 2e-5,
-       "chol_solve": 2e-5, "ipm_iteration": 1e-4}
+       "chol_solve": 2e-5, "ipm_iteration": 1e-4, "condense_mxu": 2e-5,
+       "cholesky_unblocked": 2e-5, "chol_solve_unblocked": 2e-5}
 # the card's applied inputs simU against the CPU's float32 and float64 step
 # from the same carry: max |card - cpu| <= TOL_U * max |simU f64| per input.
 # One float32 step lies within 3e-4 (nominal) and 2e-4 (SNMPC) of the
 # float64 step on this scale
-TOL_U = {"nominal": 2e-3, "snmpc": 2e-3}
+TOL_U = {"nominal": 2e-3, "snmpc": 2e-3, "rnmpc": 2e-3, "wmpc_rnmpc": 2e-3}
+# paths whose CPU re-solve runs in float32 beside float64, so that the card's
+# step is also held to the CPU's in its own precision. R2NMPC and WMPC run the
+# nominal engine under QPMods and are held to float64 alone, which halves
+# their share of the script's CPU time
+F32_RESOLVE = ("nominal", "snmpc")
 CARRY = ("w", "Gw", "su", "sl", "pu", "pl", "lam_u", "lam_l", "mu_u", "mu_l")
 REPLACES = {
     "linearize": "tum_control_tpu/ops/pallas_kernels/linearize.py:41",
@@ -83,6 +103,9 @@ REPLACES = {
     "cholesky": "tum_control_tpu/ops/pallas_kernels/chol.py:90",
     "ipm_iteration": "tum_control_tpu/ops/pallas_kernels/ipm_iter.py:173",
     "chol_solve": "tum_control_tpu/ops/pallas_kernels/chol.py:139",
+    "condense_mxu": "tum_control_tpu/ops/pallas_kernels/condense.py:178",
+    "cholesky_unblocked": "tum_control_tpu/ops/pallas_kernels/chol.py:33",
+    "chol_solve_unblocked": "tum_control_tpu/ops/pallas_kernels/chol.py:58",
 }
 SOURCE = {
     "linearize": "tum_control_tpu_torch/csrc/linearize.cu",
@@ -91,6 +114,9 @@ SOURCE = {
     "cholesky": "tum_control_tpu_torch/csrc/chol.cu",
     "ipm_iteration": "tum_control_tpu_torch/csrc/ipm_iter.cu",
     "chol_solve": "tum_control_tpu_torch/csrc/chol.cu",
+    "condense_mxu": "tum_control_tpu_torch/csrc/condense.cu",
+    "cholesky_unblocked": "tum_control_tpu_torch/csrc/chol.cu",
+    "chol_solve_unblocked": "tum_control_tpu_torch/csrc/chol.cu",
 }
 
 
@@ -130,6 +156,12 @@ def bound(n_bytes, n_ops):
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def tri_bytes(n):
+    """Bytes of the lower triangles of B float32 n x n matrices: all that a
+    factorization needs of H and a triangular solve of L."""
+    return B * n * (n + 1) // 2 * 4
 
 
 def compare(name, outputs):
@@ -173,10 +205,12 @@ def kernel_phase(dev):
     from tum_control_tpu_torch.api import build_controller
     from tum_control_tpu_torch.config import MPCConfig, SimConfig
     from tum_control_tpu_torch.ops.kernels.chol import (
-        chol_solve_cuda, chol_solve_ref, cholesky_cuda, cholesky_ref,
+        chol_solve_cuda, chol_solve_ref, chol_solve_unblocked_cuda, chol_solve_unblocked_ref,
+        cholesky_cuda, cholesky_ref, cholesky_unblocked_cuda, cholesky_unblocked_ref,
     )
     from tum_control_tpu_torch.ops.kernels.condense import (
-        condense_cuda, condense_from_cuda, condense_from_ref, condense_ref,
+        condense_cuda, condense_from_cuda, condense_from_ref, condense_mxu_cuda,
+        condense_mxu_ref, condense_ref,
     )
     from tum_control_tpu_torch.ops.kernels.ipm_iter import (
         fused_iteration_cuda, iteration_ref, masks_of, sigma_of,
@@ -240,6 +274,20 @@ def kernel_phase(dev):
     record("condense", err, time_cuda(lambda: condense_cuda(A_, B_, xi, d0), 50),
            time_cuda(lambda: condense_ref(A_, B_, xi, d0), 5), nbytes(A_, B_, xi, d0, e, Gam), ops)
 
+    # K8 on the same inputs: one augmented (B, N+1, nx, nz+1) output, held
+    # per output (e, Gamma); the same active-triangle operation count
+    e8, G8 = condense_mxu_cuda(A_, B_, xi, d0)
+    e8p, G8p = condense_mxu_ref(A_, B_, xi, d0)
+    err = compare("condense_mxu", [("e", e8, e8p), ("Gamma", G8, G8p)])
+    say(f"[condense_mxu] against K2 on the same inputs: max |e8 - e2| "
+        f"{float((e8 - e).abs().max()):.3e}, "
+        f"max |Gamma8 - Gamma2| {float((G8 - Gam).abs().max()):.3e}")
+    record("condense_mxu", err, time_cuda(lambda: condense_mxu_cuda(A_, B_, xi, d0), 50),
+           time_cuda(lambda: condense_mxu_ref(A_, B_, xi, d0), 5),
+           nbytes(A_, B_, xi, d0) + B * (N + 1) * NX * (NZ + 1) * 4, ops)
+    say(f"[condense_mxu] K2 again in the same place: "
+        f"{time_cuda(lambda: condense_cuda(A_, B_, xi, d0), 50):.4f} ms")
+
     # K1 at SNMPC's shapes: one RK4 substep; the head rows are every copy of
     # the fanned state at the 5 head stages, the tail rows the nominal copy
     # at the other 33, in the order lin_structured builds them
@@ -297,12 +345,14 @@ def kernel_phase(dev):
     H = (H0 + torch.matmul(G.transpose(1, 2) * sig[:, None, :NCG], G)
          + torch.diag_embed(sig[:, NCG:] + 1e-11)).contiguous()
 
+    # bytes: the lower triangle of H read, the whole L written (its strict
+    # upper triangle is 0); the solve reads L's lower triangle and b, writes x
     L = cholesky_cuda(H)
     Lp = cholesky_ref(H)
     err = compare("cholesky", [("L", L, Lp)])
     ops = B * (NZ ** 3 / 3 + NZ ** 2)
     record("cholesky", err, time_cuda(lambda: cholesky_cuda(H), 50),
-           time_cuda(lambda: cholesky_ref(H), 5), nbytes(H, L), ops,
+           time_cuda(lambda: cholesky_ref(H), 5), tri_bytes(NZ) + nbytes(L), ops,
            library_ms=time_cuda(lambda: torch.linalg.cholesky(H), 50))
 
     b = torch.tensor(rng.standard_normal((B, NZ)), dtype=torch.float32, device=dev)
@@ -310,8 +360,22 @@ def kernel_phase(dev):
     xp = chol_solve_ref(L, b)
     err = compare("chol_solve", [("x", x, xp)])
     record("chol_solve", err, time_cuda(lambda: chol_solve_cuda(L, b), 50),
-           time_cuda(lambda: chol_solve_ref(L, b), 5), nbytes(L, b, x), B * 2 * NZ * NZ,
+           time_cuda(lambda: chol_solve_ref(L, b), 5), tri_bytes(NZ) + nbytes(b, x),
+           B * 2 * NZ * NZ,
            library_ms=time_cuda(lambda: torch.cholesky_solve(b[..., None], L), 50))
+
+    # K7 on K3's and K5's inputs, n = 76 unpadded, the bytes counted as theirs
+    L7 = cholesky_unblocked_cuda(H)
+    err = compare("cholesky_unblocked", [("L", L7, cholesky_unblocked_ref(H))])
+    record("cholesky_unblocked", err, time_cuda(lambda: cholesky_unblocked_cuda(H), 50),
+           time_cuda(lambda: cholesky_unblocked_ref(H), 5), tri_bytes(NZ) + nbytes(L7), ops,
+           library_ms=time_cuda(lambda: torch.linalg.cholesky(H), 50))
+    x7 = chol_solve_unblocked_cuda(L7, b)
+    err = compare("chol_solve_unblocked", [("x", x7, chol_solve_unblocked_ref(L7, b))])
+    record("chol_solve_unblocked", err, time_cuda(lambda: chol_solve_unblocked_cuda(L7, b), 50),
+           time_cuda(lambda: chol_solve_unblocked_ref(L7, b), 5), tri_bytes(NZ) + nbytes(b, x7),
+           B * 2 * NZ * NZ,
+           library_ms=time_cuda(lambda: torch.cholesky_solve(b[..., None], L7), 50))
 
     lam_d = lam_u - lam_l
     rw = (torch.matmul(H0, carry[0][..., None])[..., 0] + g0
@@ -322,11 +386,11 @@ def kernel_phase(dev):
     err = compare("ipm_iteration", list(zip(CARRY + ("sigma",), kc + (ksig,), pc + (psig,))))
     check(torch.equal(kunc, punc), "ipm_iteration: unconverged flags differ")
     # two directions of con_tmul + fwd/bwd substitution + con_mul, plus ~60
-    # elementwise operations per constraint row
+    # elementwise operations per constraint row; of L only its lower triangle
     ops = B * (2 * (4 * NCG * NZ + 2 * NZ * NZ) + 60 * NC)
     record("ipm_iteration", err, time_cuda(lambda: fused_iteration_cuda(*args, carry), 50),
            time_cuda(lambda: iteration_ref(*args, carry), 5),
-           nbytes(*args, *carry, *kc, ksig, kunc), ops)
+           tri_bytes(NZ) + nbytes(*args[1:], *carry, *kc, ksig, kunc), ops)
     return results
 
 
@@ -385,7 +449,7 @@ def loop_phase(dev, path):
     from tum_control_tpu_torch.parallel.mesh import batched_scenarios
 
     settle, steps, _ = PATHS[path]
-    sim, _, _, traj, _ = build_simulation(SimConfig(sim_mode=0), MPCConfig(controller=path),
+    sim, _, _, traj, _ = build_simulation(SimConfig(sim_mode=0), MPCConfig(**PATH_CONFIG[path]),
                                           device=dev, dtype=torch.float32)
     x0m, x0s = batched_scenarios(traj, B, dtype=torch.float32, device=dev)
     carry = sim.init_carry(x0m, x0s, key=0)
@@ -421,44 +485,76 @@ def loop_phase(dev, path):
         f"{t2 - t1:.3f} s: {sps:.1f} solves/s, {(t2 - t1) / steps * 1e3:.3f} ms/step")
     say(f"[loop/{path}] solver ok fraction {ok:.5f}; |lat_dev| p50 {p50:.4f} m, p99 {p99:.4f} m")
     check(ok >= 0.99, f"{path}: solver ok fraction {ok} < 0.99")
+    act = log.wmpc_action
+    if PATH_CONFIG[path].get("enable_WMPC"):
+        check(bool((act >= 0).all()), f"{path}: a WMPC step logged no action")
+        change = act[:, 1:] != act[:, :-1]
+        hist = torch.bincount(act.flatten().long().cpu(), minlength=sim.controller.policy.n_actions)
+        say(f"[loop/{path}] weight switches in the {steps} timed steps: {int(change.any(0).sum())} "
+            f"steps switched in some scenario, {int(change.sum())} (scenario, step) switches; "
+            f"action histogram over (scenario, step) {hist.tolist()}")
+    else:
+        check(bool((act == -1).all()), f"{path}: actions logged without WMPC")
     profile_window(sim, carry, (t2 - t1) / steps, path)
     return launches, sim, carry0, log_settle
 
 
 def cpu_phase(path, sim, carry0, log_settle):
     """Each of the path's first CPU steps of the card's run again on the
-    CPU, where the port takes its plain versions, in float32 and float64
-    from the card's own carry at that step: the card's simU is held to both
-    within TOL_U, in every scenario and step.
+    CPU, where the port takes its plain versions, in float64 (and, on the
+    F32_RESOLVE paths, float32) from the card's own carry at that step: the
+    card's simU is held to each within TOL_U, in every scenario and step.
 
     A free run from the same initial states is no such yardstick: within 20
     steps a few scenarios of two float32 runs drift apart by O(1) in jerk
-    (a 3-iteration IPM per step amplifies roundoff along the trajectory), so
-    that drift is printed and not held."""
+    (a 3-iteration IPM per step amplifies roundoff along the trajectory)."""
     from tum_control_tpu_torch.api import build_simulation
     from tum_control_tpu_torch.config import MPCConfig, SimConfig
 
     n = PATHS[path][2]
+    wmpc = PATH_CONFIG[path].get("enable_WMPC", False)
     t0 = time.perf_counter()
     f32, f64 = torch.float32, torch.float64
-    cpu = {dt: build_simulation(SimConfig(sim_mode=0), MPCConfig(controller=path), device="cpu",
-                                dtype=dt)[0] for dt in (f32, f64)}
+    dts = (f32, f64) if path in F32_RESOLVE else (f64,)
+    cpu = {dt: build_simulation(SimConfig(sim_mode=0), MPCConfig(**PATH_CONFIG[path]),
+                                device="cpu", dtype=dt)[0] for dt in dts}
     carry = move_carry(carry0, log_settle.simU.device, f32)
     zero = torch.zeros_like(carry.x_sim)
-    U = {"card": [], f32: [], f64: []}
+    U = {"card": [], **{dt: [] for dt in dts}}
+    acts = {"card": [], f64: []}
+    margins = []
     for _ in range(n):
         here = move_carry(carry, "cpu", f32)
         carry, lg = sim.step(carry, zero, zero)
         U["card"].append(lg.simU.double().cpu())
-        for dt in (f32, f64):
+        acts["card"].append(lg.wmpc_action.cpu())
+        for dt in dts:
             z = torch.zeros_like(here.x_sim, dtype=dt)
-            U[dt].append(cpu[dt].step(move_carry(here, "cpu", dt), z, z)[1].simU.double())
+            c_dt, lg_dt = cpu[dt].step(move_carry(here, "cpu", dt), z, z)
+            U[dt].append(lg_dt.simU.double())
+            if dt == f64:
+                acts[f64].append(lg_dt.wmpc_action)
+                ctrl = cpu[f64].controller
+                if wmpc and bool((here.extra.steps >= ctrl.period).any()):
+                    # a policy update this step: how far the argmax is from a tie
+                    top2 = torch.topk(ctrl.policy.logits(c_dt.extra.obs), 2).values
+                    margins.append(float((top2[:, 0] - top2[:, 1]).min()))
     U = {k: torch.stack(v, dim=1) for k, v in U.items()}   # (B, n, nu)
+    acts = {k: torch.stack(v, dim=1) for k, v in acts.items()}
+    if wmpc:
+        check(len(margins) > 0, f"{path}: no policy update in the {n} re-solved steps")
+        same = torch.equal(acts["card"], acts[f64])
+        say(f"[cpu/{path}] actions card = cpu f64 in every scenario and step: {same}; "
+            f"{len(margins)} policy update(s) in the window, smallest top-2 logit margin "
+            f"{min(margins):.4e}")
+        check(same, f"{path}: the card's WMPC actions differ from the CPU float64 run's")
     scale = U[f64].abs().amax(dim=(0, 1))
     say(f"[cpu/{path}] {n} steps x {B} scenarios, each from the card's carry, on the CPU "
         f"in {time.perf_counter() - t0:.1f} s; max |simU f64| per input {scale.tolist()}")
-    for label, a, b in (("card - cpu f32", "card", f32), ("card - cpu f64", "card", f64),
-                        ("cpu f32 - cpu f64", f32, f64)):
+    pairs = [("card - cpu f64", "card", f64)]
+    if f32 in U:
+        pairs += [("card - cpu f32", "card", f32), ("cpu f32 - cpu f64", f32, f64)]
+    for label, a, b in pairs:
         d = (U[a] - U[b]).abs()
         worst = d.amax(dim=(0, 1))
         s, k = divmod(int(d.amax(dim=2).argmax()), n)
@@ -468,17 +564,12 @@ def cpu_phase(path, sim, carry0, log_settle):
         check(bool((worst <= TOL_U[path] * scale).all()),
               f"{path}: max |simU {label}| beyond the tolerance")
 
-    _, lg = cpu[f32].run_from(move_carry(carry0, "cpu", f32), n)
-    drift = (log_settle.simU[:, :n].double().cpu() - lg.simU.double()).abs()
-    say(f"[cpu/{path}] free float32 run from the same initial states: max |simU card - cpu| "
-        f"{float(drift.max()):.3e} (step 0: {float(drift[:, 0].max()):.3e}); "
-        f"{int((drift.amax(dim=(1, 2)) > 1e-2).sum())} of {B} scenarios beyond 1e-2")
-
 
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs on a GPU", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, REPO)
     from tum_control_tpu_torch.ops.kernels import build
 
@@ -491,26 +582,41 @@ def main():
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmuls are enabled")
 
-    t0 = time.perf_counter()
     logs = build.build_all()
-    say(f"[build] {len(logs)} libraries built in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"[build] {name}: {line.strip()}")
 
+    def lap(phase, since):
+        now = time.perf_counter()
+        say(f"[time] {phase}: {now - since:.1f} s")
+        return now
+
+    t = lap("start and build", t_start)
     results = kernel_phase(dev)
-    per_path = {}
+    t = lap("kernel phase", t)
+    # every loop before any CPU re-solve, so that no path's host clock runs
+    # beside the CPU work of an earlier one
+    runs = {}
     for path in PATHS:
-        launches, sim, carry0, log_settle = loop_phase(dev, path)
+        runs[path] = loop_phase(dev, path)
+        t = lap(f"loop/{path}", t)
+    for path, (_, sim, carry0, log_settle) in runs.items():
         cpu_phase(path, sim, carry0, log_settle)
-        per_path[path] = launches
+        t = lap(f"cpu/{path}", t)
+    lap("whole script after the imports", t_start)
+    per_path = {path: run[0] for path, run in runs.items()}
     check(set(results) == set(build.LAUNCHES), "kernel list and launch counters differ")
     for name in build.LAUNCHES:
         n = {path: per_path[path][name] for path in PATHS}
-        check(sum(n.values()) > 0, f"kernel {name} was launched on no path")
+        if name in OFF_PATH:
+            check(sum(n.values()) == 0, f"kernel {name} was launched on a path")
+        else:
+            check(sum(n.values()) > 0, f"kernel {name} was launched on no path")
         results[name]["launches"] = sum(n.values())
         results[name]["launches_per_path"] = n
+        results[name]["path"] = None if name in OFF_PATH else [p for p in PATHS if n[p] > 0]
     say(json.dumps({"kernels": [results[k] for k in build.LAUNCHES]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -66,9 +66,10 @@ def test_nominal_closed_loop_200_steps_matches_jax():
 def test_port_imports_without_jax_and_needs_cuda_by_default():
     """The whole package imports with `jax` and `tum_control_tpu` blocked,
     loads neither, and its entry points (build_simulation, build_controller
-    for both controllers, the convert functions) and constructors
-    (GGTables, NominalNMPC, StochasticNMPC) raise without a CUDA device
-    unless the caller names a device."""
+    for every controller and WMPC, load_sb3_policy, the convert functions)
+    and constructors (GGTables, NominalNMPC, StochasticNMPC,
+    ReducedRobustNMPC) raise without a CUDA device unless the caller names
+    a device."""
     code = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
 
@@ -91,7 +92,9 @@ def test_port_imports_without_jax_and_needs_cuda_by_default():
         from tum_control_tpu_torch.config import MPCConfig, SimConfig
         from tum_control_tpu_torch.controllers.common import GGTables
         from tum_control_tpu_torch.controllers.nominal import NominalNMPC
+        from tum_control_tpu_torch.controllers.rnmpc import ReducedRobustNMPC
         from tum_control_tpu_torch.controllers.snmpc import StochasticNMPC
+        from tum_control_tpu_torch.learn.policy import load_sb3_policy
 
         def needs_cuda(name, fn):
             try:
@@ -112,7 +115,17 @@ def test_port_imports_without_jax_and_needs_cuda_by_default():
             "su", "sl", "lam_u", "lam_l", "mu_u", "mu_l")})
         carry = dict(ctrl_state=state, x_sim=z(2, 7), x_dist=z(2, 7), x_est=z(2, 8),
                      est_buf=z(2, 8, 15), est_count=np.zeros(2, np.int32), pose=z(2, 2))
+        rnmpc = MPCConfig(controller="rnmpc")
+        wmpc = MPCConfig(controller="rnmpc", enable_WMPC=True,
+                         WMPC_model="data/wmpc_models/new_BO_F")
+        npz = cfg.REPO_ROOT + "/data/wmpc_models/new_BO_F/policy_weights.npz"
+        extra = dict(corr_steer=z(2, 39), corr_acc=z(2, 39, 1))
         needs_cuda("build_simulation", lambda: build_simulation(sim, MPCConfig()))
+        needs_cuda("build_controller rnmpc", lambda: build_controller(rnmpc, sim))
+        needs_cuda("build_simulation wmpc", lambda: build_simulation(sim, wmpc))
+        needs_cuda("ReducedRobustNMPC", lambda: ReducedRobustNMPC(rnmpc, 38, 0.08, vp, tp, gg_cpu))
+        needs_cuda("load_sb3_policy", lambda: load_sb3_policy(npz))
+        needs_cuda("convert.robust_extra", lambda: convert.robust_extra(extra))
         needs_cuda("build_simulation snmpc", lambda: build_simulation(sim, snmpc))
         needs_cuda("build_controller snmpc", lambda: build_controller(snmpc, sim))
         needs_cuda("GGTables", lambda: GGTables(*table))
@@ -124,6 +137,9 @@ def test_port_imports_without_jax_and_needs_cuda_by_default():
             ("vel", "ax_max", "ax_min", "ay_max"), table))))
         build_simulation(sim, MPCConfig(), device="cpu")
         build_simulation(sim, snmpc, device="cpu")
+        build_simulation(sim, wmpc, device="cpu")
+        assert load_sb3_policy(npz, device="cpu").n_actions == 26
+        assert convert.robust_extra(extra, device="cpu").corr_acc.shape == (2, 39, 1)
         assert convert.sim_carry(carry, device="cpu").ctrl_state.X.shape == (2, 39, 88)
         print("ISOLATED-OK")
     """)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each wrapper against its plain
 PyTorch version on the same CUDA float32 inputs, the dispatch rule's
 refusals, the launch counters, and a short closed loop of each ported
-controller (nominal: K1-K5; SNMPC: K1, K3-K6).
+controller (nominal, R2NMPC and WMPC over R2NMPC: K1-K5; SNMPC: K1, K3-K6).
+K7 and K8, which no path launches, are held on their own inputs.
 
 Marked `cuda`; without a CUDA device every test skips. On a GPU machine:
 
@@ -14,12 +15,16 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import PATH_CONFIG
 from tum_control_tpu_torch.api import build_controller, build_simulation
 from tum_control_tpu_torch.config import MPCConfig, SimConfig
 from tum_control_tpu_torch.ops.kernels import build
-from tum_control_tpu_torch.ops.kernels.chol import chol_solve, chol_solve_ref, cholesky, cholesky_ref
+from tum_control_tpu_torch.ops.kernels.chol import (
+    chol_solve, chol_solve_ref, chol_solve_unblocked, chol_solve_unblocked_ref, cholesky,
+    cholesky_ref, cholesky_unblocked, cholesky_unblocked_ref,
+)
 from tum_control_tpu_torch.ops.kernels.condense import (
-    condense, condense_from, condense_from_ref, condense_ref,
+    condense, condense_from, condense_from_ref, condense_mxu, condense_mxu_ref, condense_ref,
 )
 from tum_control_tpu_torch.parallel.mesh import batched_scenarios
 
@@ -104,6 +109,55 @@ def test_condense_from_kernel(dev, B, N2, nz, col0):
     assert torch.equal(G[:, 0], G0) and torch.equal(e[:, 0], e0)
 
 
+@pytest.mark.parametrize("B,n", [(3, 12), (128, 76)])
+def test_unblocked_cholesky_and_solve_kernels(dev, B, n):
+    """K7 against its plain versions (the same pivot loops)."""
+    H = _spd(B, n, 6, dev)
+    b = torch.randn(B, n, device=dev, generator=torch.Generator(dev).manual_seed(1))
+    build.reset_launches()
+    L = cholesky_unblocked(H)
+    x = chol_solve_unblocked(L, b)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["cholesky_unblocked"] == 1 and build.LAUNCHES["chol_solve_unblocked"] == 1
+    _close(L, cholesky_unblocked_ref(H), 2e-5)
+    _close(x, chol_solve_unblocked_ref(L, b), 2e-5)
+    assert torch.count_nonzero(torch.triu(L, 1)) == 0
+
+
+@pytest.mark.parametrize("B,N", [(3, 5), (128, 38)])
+def test_condense_mxu_kernel(dev, B, N):
+    """K8 against its plain version, small and at the nominal shapes; e
+    also against K2's e on the same inputs."""
+    rng = np.random.default_rng(7)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    A = t(0.97 * np.eye(8) + rng.normal(0, 0.05, (B, N, 8, 8)))
+    Bm, xi = t(rng.normal(0, 1, (B, N, 8, 2))), t(rng.normal(0, 0.1, (B, N, 8)))
+    d0 = t(rng.normal(0, 1, (B, 8)))
+    build.reset_launches()
+    e, G = condense_mxu(A, Bm, xi, d0)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["condense_mxu"] == 1
+    ep, Gp = condense_mxu_ref(A, Bm, xi, d0)
+    _close(e, ep, 2e-5)
+    _close(G, Gp, 2e-5)
+    _close(e, condense(A, Bm, xi, d0)[0], 2e-5)
+    assert torch.equal(e[:, 0], d0) and torch.count_nonzero(G[:, 0]) == 0
+
+
+@pytest.mark.parametrize("nx,N", [(17, 4), (16, 300), (8, 600)])
+def test_condense_mxu_refuses_what_it_cannot_hold(dev, nx, N):
+    """K8 holds a column of at most 16 states in registers, at most 1024
+    augmented columns and its inputs in 227 KB of shared memory: beyond
+    that the wrapper raises and launches nothing."""
+    A = torch.zeros(2, N, nx, nx, device=dev)
+    args = (A, torch.zeros(2, N, nx, 2, device=dev), torch.zeros(2, N, nx, device=dev),
+            torch.zeros(2, nx, device=dev))
+    build.reset_launches()
+    with pytest.raises(ValueError):
+        condense_mxu(*args)
+    assert build.LAUNCHES["condense_mxu"] == 0
+
+
 def test_condense_refuses_wide_states_on_the_card(dev):
     """nx = 88 (SNMPC's dense stack) exceeds K2's shared-memory layout:
     `condense` raises on the card and launches nothing."""
@@ -128,23 +182,30 @@ def test_dispatch_refuses_what_the_kernels_do_not_take(dev):
         chol_solve(H, torch.zeros(2, 8))  # one tensor on the CPU
 
 
-# launches over 5 closed-loop steps, per controller: one K1 and one
+# launches over 5 closed-loop steps, per path of chip_smoke.PATH_CONFIG: one K1 and one
 # condensing launch per step, 3 IPM iterations (K3 + K4) and one polish (K3 + K5)
+NOMINAL_LAUNCHES = {"linearize": 5, "condense": 5, "condense_from": 0, "cholesky": 20,
+                    "chol_solve": 5, "ipm_iteration": 15, "condense_mxu": 0,
+                    "cholesky_unblocked": 0, "chol_solve_unblocked": 0}
 PATH_LAUNCHES = {
-    "nominal": {"linearize": 5, "condense": 5, "condense_from": 0, "cholesky": 20,
-                "chol_solve": 5, "ipm_iteration": 15},
-    "snmpc": {"linearize": 5, "condense": 0, "condense_from": 5, "cholesky": 20,
-              "chol_solve": 5, "ipm_iteration": 15},
+    "nominal": NOMINAL_LAUNCHES,
+    "snmpc": dict(NOMINAL_LAUNCHES, condense=0, condense_from=5),
+    "rnmpc": NOMINAL_LAUNCHES,
+    "wmpc_rnmpc": NOMINAL_LAUNCHES,
 }
 
 
-@pytest.mark.parametrize("controller", ["nominal", "snmpc"])
-def test_short_closed_loop_goes_through_every_kernel(dev, controller):
-    sim, _, _, traj, _ = build_simulation(SimConfig(sim_mode=0), MPCConfig(controller=controller))
+@pytest.mark.parametrize("path", list(PATH_CONFIG))
+def test_short_closed_loop_goes_through_every_kernel(dev, path):
+    sim, _, _, traj, _ = build_simulation(SimConfig(sim_mode=0), MPCConfig(**PATH_CONFIG[path]))
     x0m, x0s = batched_scenarios(traj, 4, dtype=torch.float32, device=dev)
     build.reset_launches()
     carry, log = sim.run(x0m, x0s, 5)
     torch.cuda.synchronize()
-    assert build.LAUNCHES == PATH_LAUNCHES[controller]
+    assert build.LAUNCHES == PATH_LAUNCHES[path]
     assert (log.simSolverDebug[..., 4] == 0).all()
-    assert torch.isfinite(log.simU).all()
+    for f, v in log._asdict().items():
+        if v.is_floating_point():
+            assert torch.isfinite(v).all(), f
+    wmpc = PATH_CONFIG[path].get("enable_WMPC", False)
+    assert ((log.wmpc_action >= 0) if wmpc else (log.wmpc_action == -1)).all()

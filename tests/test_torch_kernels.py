@@ -1,5 +1,5 @@
-"""The plain PyTorch versions of the five ported kernels (K1-K5) against the
-JAX package's references, on the CPU; and the wrappers' dispatch rule.
+"""The plain PyTorch versions of the ported kernels (K1-K5, K7, K8) against
+the JAX package's references, on the CPU; and the wrappers' dispatch rule.
 
   K1 linearize_ref   vs make_linearize_rollout's jacfwd_path (vmapped)
   K2 condense_ref    vs condense_scan_ref
@@ -8,10 +8,18 @@ JAX package's references, on the CPU; and the wrappers' dispatch rule.
   K4 iteration_ref   vs the vmapped iteration_ref (float64), and at float32,
                      B = 128 vs the Pallas kernel fused_iteration_batched in
                      interpret mode, as tests/test_ipm_fused.py runs it.
+  K8 condense_mxu_ref vs _condense_tpu_mxu (its pallas_call in interpret
+                     mode) and condense_scan_ref
+  K7 cholesky_unblocked_ref / chol_solve_unblocked_ref vs _chol_kernel /
+                     _solve_kernel (a test-built interpret-mode pallas_call
+                     in the lanes layout), jnp.linalg.cholesky and cho_solve
 
 The CUDA kernels themselves run only on the card (tests/test_torch_cuda.py,
 chip_smoke.py), where they are held against these plain versions.
 """
+import functools
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -19,16 +27,22 @@ import torch
 import jax
 import jax.numpy as jnp
 import jax.scipy.linalg as jsl
+from jax.experimental import pallas as pl
 
 from tum_control_tpu.api import build_controller as j_build_controller
 from tum_control_tpu.config import MPCConfig as JMPC, SimConfig as JSim
+from tum_control_tpu.ops.pallas_kernels import chol as jchol
+from tum_control_tpu.ops.pallas_kernels import condense as jcondense
 from tum_control_tpu.ops.pallas_kernels import ipm_iter as jipm
 from tum_control_tpu.ops.pallas_kernels.condense import condense_scan_ref
 from tum_control_tpu_torch.api import build_controller
 from tum_control_tpu_torch.config import MPCConfig, SimConfig
 from tum_control_tpu_torch.ops.kernels import build
-from tum_control_tpu_torch.ops.kernels.chol import chol_solve, chol_solve_ref, cholesky, cholesky_ref
-from tum_control_tpu_torch.ops.kernels.condense import condense
+from tum_control_tpu_torch.ops.kernels.chol import (
+    chol_solve, chol_solve_ref, chol_solve_unblocked, chol_solve_unblocked_ref, cholesky,
+    cholesky_ref, cholesky_unblocked, cholesky_unblocked_ref,
+)
+from tum_control_tpu_torch.ops.kernels.condense import condense, condense_mxu, condense_mxu_ref
 from tum_control_tpu_torch.ops.kernels.ipm_iter import fused_iteration, masks_of, sigma_of
 
 from test_ipm_fused import _init_carry, _random_problem
@@ -171,7 +185,8 @@ def test_wrappers_dispatch_by_tensor():
         build.use_kernel(H, torch.empty(3, device="meta"))
     assert all(v == 0 for v in build.LAUNCHES.values())
     assert set(build.LAUNCHES) == {"linearize", "condense", "condense_from", "cholesky",
-                                   "chol_solve", "ipm_iteration"}
+                                   "chol_solve", "ipm_iteration", "condense_mxu",
+                                   "cholesky_unblocked", "chol_solve_unblocked"}
 
 
 @pytest.mark.parametrize("nx,to_kernel", [(8, True), (16, True), (17, False), (88, False)])
@@ -205,3 +220,79 @@ def test_k2_condense_refuses_wide_states(monkeypatch, nx, to_kernel):
     with pytest.raises(Launched if to_kernel else ValueError):
         cmod.condense(*args)
     assert build.LAUNCHES["condense"] == 0
+
+
+def _condense_case(Bt, N, nx, nu, seed, dtype):
+    rng = np.random.default_rng(seed)
+    A = 0.97 * np.eye(nx) + rng.normal(0, 0.05, (Bt, N, nx, nx))   # stable, as K1's are
+    return tuple(np.asarray(a, dtype) for a in (
+        A, rng.standard_normal((Bt, N, nx, nu)), rng.normal(0, 0.1, (Bt, N, nx)),
+        rng.standard_normal((Bt, nx))))
+
+
+def test_k8_condense_mxu_plain_matches_interpret_kernel_and_scan_ref(monkeypatch):
+    """float32, B = 20 (padded to 2 blocks of 16 scenarios): against the TPU
+    kernel body run through `_condense_tpu_mxu` with its `pallas_call` in
+    interpret mode (each output to 2e-5 of its max: float32 products of 38
+    stages in another order). float64: against condense_scan_ref and K2's
+    plain version (1e-12). The wrapper takes CPU tensors to the plain
+    version and counts no launch."""
+    args32 = _condense_case(20, 38, 8, 2, 16, np.float32)
+    interp = types.SimpleNamespace(pallas_call=functools.partial(pl.pallas_call, interpret=True),
+                                   BlockSpec=pl.BlockSpec)
+    monkeypatch.setattr(jcondense, "pl", interp)
+    e_k, G_k = jcondense._condense_tpu_mxu(*(jnp.asarray(a) for a in args32))
+    e_t, G_t = condense_mxu_ref(*(T(a) for a in args32))
+    assert e_t.dtype == torch.float32 and G_t.shape == (20, 39, 8, 76)
+    for got, ref in ((e_t, e_k), (G_t, G_k)):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=2e-5 * np.abs(ref).max())
+
+    args = _condense_case(4, 38, 8, 2, 17, np.float64)
+    e_j, G_j = jax.vmap(condense_scan_ref)(*args)
+    build.reset_launches()
+    e_t, G_t = condense_mxu(*(T(a) for a in args))
+    assert build.LAUNCHES["condense_mxu"] == 0
+    np.testing.assert_allclose(e_t.numpy(), np.asarray(e_j), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(G_t.numpy(), np.asarray(G_j), rtol=0, atol=1e-12)
+    e2, G2 = condense(*(T(a) for a in args))
+    np.testing.assert_allclose(e_t.numpy(), e2.numpy(), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(G_t.numpy(), G2.numpy(), rtol=0, atol=1e-12)
+
+
+def _lanes_call(kernel, out, *args):
+    """A TPU kernel body over (1, n, ..., 128) lanes-layout refs, run in
+    interpret mode with the whole arrays as its blocks."""
+    return pl.pallas_call(kernel, out_shape=jax.ShapeDtypeStruct(out.shape, out.dtype),
+                          interpret=True)(*args)
+
+
+@pytest.mark.parametrize("n", [12, 76])
+def test_k7_plain_matches_unblocked_kernels_interpret(n):
+    """float64, 128 matrices in the lanes: the unblocked TPU kernels
+    `_chol_kernel` and `_solve_kernel` against the port's plain versions of
+    their pivot loops (1e-12: the same arithmetic), and both against
+    jnp.linalg.cholesky / cho_solve (1e-11, cond ~1e2); the wrappers take
+    CPU tensors to the plain versions."""
+    B = jchol.LANES
+    H = _spd(B, n, seed=18 + n)
+    b = np.random.default_rng(19).standard_normal((B, n))
+    to_lanes = lambda a: jnp.moveaxis(jnp.asarray(a)[None], 1, -1)     # (1, n, .., 128)
+    from_lanes = lambda a: np.moveaxis(np.asarray(a)[0], -1, 0)
+    Lt = _lanes_call(jchol._chol_kernel, to_lanes(H), to_lanes(H))
+    xt = _lanes_call(jchol._solve_kernel, to_lanes(b), Lt, to_lanes(b))
+    L_k, x_k = from_lanes(Lt), from_lanes(xt)
+
+    build.reset_launches()
+    L_t = cholesky_unblocked(T(H))
+    x_t = chol_solve_unblocked(L_t, T(b))
+    assert build.LAUNCHES["cholesky_unblocked"] == 0 and build.LAUNCHES["chol_solve_unblocked"] == 0
+    assert torch.equal(L_t, cholesky_unblocked_ref(T(H)))
+    assert torch.equal(x_t, chol_solve_unblocked_ref(L_t, T(b)))
+    np.testing.assert_allclose(L_t.numpy(), L_k, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(x_t.numpy(), x_k, rtol=0, atol=1e-12)
+    assert torch.count_nonzero(torch.triu(L_t, 1)) == 0
+    L_j = np.asarray(jnp.linalg.cholesky(H))
+    np.testing.assert_allclose(L_t.numpy(), L_j, rtol=1e-11, atol=1e-12)
+    x_j = np.asarray(jax.vmap(lambda L, r: jsl.cho_solve((L, True), r))(L_j, b))
+    np.testing.assert_allclose(x_t.numpy(), x_j, rtol=1e-11, atol=1e-12)

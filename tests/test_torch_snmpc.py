@@ -301,7 +301,8 @@ def test_snmpc_structured_pieces_and_qp_match_jax(warm_case):
         _close(a, b, 1e-9, name)
 
     yref, yref_e = tctrl.make_yref(twin)
-    qp_t, _ = tctrl.engine.funcs.build_qp(tst.X, tst.U, xf_t, yref, yref_e, tctrl.engine.merged)
+    qp_t, _ = tctrl.engine.funcs.build_qp(tst.X, tst.U, xf_t, yref, yref_e,
+                                          tctrl.engine._merged())
     merged = jctrl.engine._merged(None)
     qp_j, _ = jax.jit(jax.vmap(
         lambda X, U, x, yr, ye: jctrl.engine.funcs.build_qp(X, U, x, yr, ye, merged)))(

@@ -12,8 +12,8 @@ Idiom differences from the JAX package:
     from its input tensors);
   * random draws come from a `torch.Generator`.
 
-The Pallas TPU kernels of the nominal closed loop are hand-written CUDA C++
-kernels for sm_90a under `csrc/`, bound through `ops/kernels/`. Each kernel
+Every Pallas TPU kernel of the JAX package (K1-K8) is a hand-written CUDA
+C++ kernel for sm_90a under `csrc/`, bound through `ops/kernels/`. Each kernel
 wrapper dispatches by tensor: a CPU tensor runs the plain PyTorch version,
 a CUDA float32 tensor launches the kernel, anything else raises.
 

@@ -1,6 +1,7 @@
 """High-level assembly: configs -> controller + closed-loop simulation
-(port of tum_control_tpu/api.py; this slice builds the nominal and the
-stochastic (SNMPC) controllers).
+(port of tum_control_tpu/api.py): the nominal, stochastic (SNMPC) and
+reduced robustified (R2NMPC) controllers, each optionally wrapped by the
+weights-varying policy (WMPC).
 
 Everything runs on `cuda` unless the caller passes a device (the CPU tests
 pass `device="cpu"`); without a CUDA device and without an explicit device,
@@ -9,6 +10,7 @@ pass `device="cpu"`); without a CUDA device and without an explicit device,
 from __future__ import annotations
 
 import os
+import warnings
 
 import torch
 
@@ -43,12 +45,65 @@ def build_controller(mpc_cfg: MPCConfig, sim_cfg: SimConfig, config_path: str = 
         ctrl = StochasticNMPC(mpc_cfg, sim_cfg.N, sim_cfg.Ts_MPC, vp, tp, gg, device=device,
                               dtype=dtype)
     elif name == "rnmpc":
-        raise NotImplementedError(f"controller '{name}' waits for its slice of the port")
+        from tum_control_tpu_torch.controllers.rnmpc import ReducedRobustNMPC
+
+        ctrl = ReducedRobustNMPC(mpc_cfg, sim_cfg.N, sim_cfg.Ts_MPC, vp, tp, gg, device=device,
+                                 dtype=dtype)
     else:
         raise ValueError(f"unknown controller '{mpc_cfg.controller}'")
     if mpc_cfg.enable_WMPC:
-        raise NotImplementedError("WMPC waits for its slice of the port")
+        ctrl = _wrap_wmpc(ctrl, mpc_cfg, sim_cfg, device, dtype)
     return ctrl
+
+
+def _wrap_wmpc(ctrl, mpc_cfg: MPCConfig, sim_cfg: SimConfig, device, dtype):
+    """Attach the weights-varying policy of `mpc_cfg.WMPC_model` (a directory
+    with policy_weights.npz and, optionally, rl_config.yaml)."""
+    from tum_control_tpu_torch.learn.observation import ObservationConfig
+    from tum_control_tpu_torch.learn.policy import load_sb3_policy
+    from tum_control_tpu_torch.learn.wmpc import WMPCController, load_param_table
+
+    root = cfg_mod.REPO_ROOT
+    model_dir = mpc_cfg.WMPC_model
+    if not os.path.isabs(model_dir):
+        model_dir = os.path.join(root, model_dir)
+    policy = load_sb3_policy(os.path.join(model_dir, "policy_weights.npz"), device=device,
+                             dtype=dtype)
+    rl_cfg_path = os.path.join(model_dir, "rl_config.yaml")
+    n_points, n_stack = 10, 1
+    actions_file = "data/F.csv"
+    if os.path.exists(rl_cfg_path):
+        rl_cfg = cfg_mod._load_yaml(rl_cfg_path)
+        n_points = int(rl_cfg.get("obs_n_anticipation_points", 10))
+        n_stack = int(rl_cfg.get("n_obs_stack", 1))
+        # the catalogue the policy's actions index into; must match training
+        actions_file = rl_cfg.get("actions_file", actions_file)
+    if not os.path.isabs(actions_file):
+        # converted reference checkpoints name the reference repository's
+        # layout; the same catalogue ships here under data/<name>, an exact
+        # alias resolved silently. Anything else resolves against the repo.
+        ref_prefix = "Learning_To_Adapt/SafeRL_WMPC/_parameters/"
+        if actions_file.startswith(ref_prefix):
+            actions_file = os.path.join(root, "data", actions_file[len(ref_prefix):])
+        else:
+            actions_file = os.path.join(root, actions_file)
+    if not os.path.exists(actions_file):
+        fallback = os.path.join(root, "data", os.path.basename(actions_file))
+        if os.path.exists(fallback):
+            warnings.warn(f"WMPC actions_file '{actions_file}' not found; substituting "
+                          f"'{fallback}'. Verify it matches the catalog the policy was "
+                          "trained on.")
+            actions_file = fallback
+    table = load_param_table(actions_file)
+    if policy.n_actions != len(table):
+        raise ValueError(f"WMPC policy action head has {policy.n_actions} actions but catalog "
+                         f"'{actions_file}' has {len(table)} rows: the checkpoint was trained "
+                         "against a different actions_file.")
+    return WMPCController(
+        base=ctrl, policy=policy, param_table=table,
+        obs_cfg=ObservationConfig(n_points=n_points, Ts=sim_cfg.Ts),
+        update_period=mpc_cfg.weights_update_period, n_stack=n_stack,
+    )
 
 
 def build_simulation(sim_cfg: SimConfig, mpc_cfg: MPCConfig, config_path: str = None,

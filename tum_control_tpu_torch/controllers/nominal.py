@@ -117,10 +117,15 @@ class NominalNMPC:
         return stage, term
 
     def solve(self, state: RTIState, x0, ref_window, mods=None):
-        """One RTI step. Returns (ControllerOutput, new RTIState)."""
+        """One RTI step; `mods` an optional QPMods. Returns
+        (ControllerOutput, new RTIState)."""
         yref, yref_e = self.make_yref(ref_window)
         u0, new_state, st = self.engine.solve(state, x0, yref, yref_e, mods)
-        # node-0 steering-rate bound is hard: clip the returned control
+        return self._output(u0, new_state, st), new_state
+
+    def _output(self, u0, new_state: RTIState, st) -> ControllerOutput:
+        """The engine's result as a ControllerOutput: the node-0 steering-rate
+        bound is hard, so the returned control is clipped to it."""
         u0 = torch.stack(
             [u0[:, 0], torch.clamp(u0[:, 1], self.vp.delta_f_dot_min, self.vp.delta_f_dot_max)],
             dim=1,
@@ -131,4 +136,4 @@ class NominalNMPC:
              st.status.to(dt)],
             dim=1,
         )
-        return ControllerOutput(u0=u0, pred_X=new_state.X, stats=stats), new_state
+        return ControllerOutput(u0=u0, pred_X=new_state.X, stats=stats)

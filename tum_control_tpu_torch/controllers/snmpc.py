@@ -41,7 +41,7 @@ from tum_control_tpu_torch.controllers.nominal import HARD_Z2, ControllerOutput
 from tum_control_tpu_torch.device import resolve_device
 from tum_control_tpu_torch.ops.kernels.condense import condense_from
 from tum_control_tpu_torch.ops.kernels.linearize import LinearizeRollout
-from tum_control_tpu_torch.ops.rti import BIG, OCPFunctions, RTIEngine, RTIState
+from tum_control_tpu_torch.ops.rti import BIG, OCPFunctions, RTIEngine, RTIState, qp_rows
 from tum_control_tpu_torch.ops.soft_qp import CondensedQP, mtv
 from tum_control_tpu_torch.params import TireParams, VehicleParams
 
@@ -262,13 +262,13 @@ class StochasticNMPC:
                 Gam_nom[:, N, 0:3],
                 (cT3[:, None] * Gam_nom[:, N, 3] + cT4[:, None] * Gam_nom[:, N, 4])[:, None],
             ], dim=1)                                           # (B, 4, nz)
-            Wx, Wu = W[:4], W[4:]
+            Wx, Wu = W[..., :4], W[..., 4:]   # (ny,) static, or (B, ny) from QPMods
             Mf2 = Mf.reshape(Bt, N * 4, nz)
-            wtsx = Wx.repeat(N)
-            H0 = (torch.matmul((Mf2 * wtsx[:, None]).transpose(1, 2), Mf2)
-                  + torch.matmul((Me * We[:, None]).transpose(1, 2), Me)
-                  + torch.diag(Wu.repeat(N)))
-            g0 = (mtv(Mf2, wtsx * r_x.reshape(Bt, -1)) + (Wu * r_u).reshape(Bt, -1)
+            wtsx = torch.tile(Wx, (N,))
+            H0 = (torch.matmul((Mf2 * wtsx[..., None]).transpose(1, 2), Mf2)
+                  + torch.matmul((Me * We[..., None]).transpose(1, 2), Me)
+                  + torch.diag_embed(torch.tile(Wu, (N,))))
+            g0 = (mtv(Mf2, wtsx * r_x.reshape(Bt, -1)) + (Wu.unsqueeze(-2) * r_u).reshape(Bt, -1)
                   + mtv(Me, We * re0))
 
             # --- constraint rows ---
@@ -287,12 +287,11 @@ class StochasticNMPC:
             G_c = torch.cat([G_h, Gam_nom[:, :, 6:7]], dim=2)   # (B, N+1, nc, nz)
             c0_c = torch.cat([c_h, (xs[:, :, 0, 6] + e_nom[:, :, 6])[..., None]], dim=2)
 
-            rows = lambda a, b: torch.cat([a.reshape(-1), b.reshape(-1)]).expand(Bt, -1)
             qp = CondensedQP(
                 H0=H0, g0=g0, G=G_c.reshape(Bt, -1, nz).contiguous(),
                 c0=torch.cat([c0_c.reshape(Bt, -1), U.reshape(Bt, -1)], dim=1),
-                lb=rows(con_lb, u_lb).contiguous(), ub=rows(con_ub, u_ub).contiguous(),
-                z1=rows(con_z1, u_z1).contiguous(), z2=rows(con_z2, u_z2).contiguous(),
+                lb=qp_rows(con_lb, u_lb, Bt), ub=qp_rows(con_ub, u_ub, Bt),
+                z1=qp_rows(con_z1, u_z1, Bt), z2=qp_rows(con_z2, u_z2, Bt),
             )
             return qp, (e_full, Gam_nom, G_head, G_frozen)
 

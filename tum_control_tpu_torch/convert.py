@@ -14,7 +14,10 @@ import numpy as np
 import torch
 
 from tum_control_tpu_torch.controllers.common import GGTables
+from tum_control_tpu_torch.controllers.rnmpc import RobustExtra
 from tum_control_tpu_torch.device import resolve_device
+from tum_control_tpu_torch.learn.policy import MLPPolicy, policy_from_arrays
+from tum_control_tpu_torch.learn.wmpc import WMPCExtra
 from tum_control_tpu_torch.ops.ipm import IPMWarm
 from tum_control_tpu_torch.ops.rti import RTIState
 from tum_control_tpu_torch.params import TireParams, VehicleParams
@@ -81,3 +84,38 @@ def sim_carry(d: dict, seed: int = 0, device=None, dtype=None) -> SimCarry:
         pose=_t(d["pose"], dtype, device),
         key=make_generator(seed, device),
     )
+
+
+def robust_extra(d: dict, device=None, dtype=None) -> RobustExtra:
+    """From {corr_steer (B, N+1), corr_acc (B, N+1, nh)}."""
+    device = resolve_device(device)
+    return RobustExtra(corr_steer=_t(d["corr_steer"], dtype, device),
+                       corr_acc=_t(d["corr_acc"], dtype, device))
+
+
+def wmpc_extra(d: dict, device=None, dtype=None) -> WMPCExtra:
+    """From {steps (B,), obs, action (B,), W, We, L1, L2, base}; `base` is
+    None or the R2NMPC base's {corr_steer, corr_acc}."""
+    device = resolve_device(device)
+    i32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int32, device=device)
+    base = d.get("base")
+    return WMPCExtra(
+        steps=i32(d["steps"]), obs=_t(d["obs"], dtype, device), action=i32(d["action"]),
+        W=_t(d["W"], dtype, device), We=_t(d["We"], dtype, device),
+        L1=_t(d["L1"], dtype, device), L2=_t(d["L2"], dtype, device),
+        base=None if base is None else robust_extra(base, device, dtype),
+    )
+
+
+def mlp_policy(d: dict, device=None, dtype=torch.float32) -> MLPPolicy:
+    """From the JAX package's MLPPolicy fields {pi_w, pi_b, vf_w, vf_b
+    (3 each), act_w, act_b, val_w, val_b}, its weights (in, out)."""
+    arrs = {}
+    for prefix, key in (("policy_net", "pi"), ("value_net", "vf")):
+        for i, (w, b) in zip((0, 2, 4), zip(d[f"{key}_w"], d[f"{key}_b"])):
+            arrs[f"mlp_extractor__{prefix}__{i}__weight"] = np.asarray(w).T
+            arrs[f"mlp_extractor__{prefix}__{i}__bias"] = np.asarray(b)
+    for name, key in (("action_net", "act"), ("value_net", "val")):
+        arrs[f"{name}__weight"] = np.asarray(d[f"{key}_w"]).T
+        arrs[f"{name}__bias"] = np.asarray(d[f"{key}_b"])
+    return policy_from_arrays(arrs, device=device, dtype=dtype)

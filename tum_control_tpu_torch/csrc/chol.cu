@@ -1,4 +1,5 @@
-// K3: batched Cholesky factorization, and K5: the solve L L^T x = b.
+// K3: batched Cholesky factorization, K5: the solve L L^T x = b, and K7:
+// the unblocked versions of both.
 //
 // K3 replaces ops/pallas_kernels/chol.py::_chol_kernel_blocked (launched by
 // _cholesky_tpu_packed and _cholesky_tpu); K5 replaces
@@ -17,6 +18,22 @@
 // K5 -- what bounds it: the 2n dependent substitution steps (latency). Design:
 // the block stages L in shared memory with coalesced loads, then one warp
 // runs the substitution with x in registers (trisolve.cuh, shared with K4).
+//
+// K7 replaces chol.py::_chol_kernel and chol.py::_solve_kernel, the
+// unblocked TPU kernels that no pallas_call of the JAX package passes. They
+// take n as it is (no pad to a multiple of 16) and keep the TPU kernels'
+// arithmetic: each pivot multiplies its column by rsqrt(a_jj) (so
+// L_jj = a_jj rsqrt(a_jj)), one rank-1 update of the trailing lower
+// triangle follows; the solve multiplies by 1 / L_jj (trisolve.cuh, RECIP).
+// RECIP is kept only to match the TPU kernel's arithmetic: x (1 / d) and x / d
+// differ by one rounding, which no tolerance of the repo can see (2e-5
+// relative on the card, 1e-12 in float64 on the CPU), so no test tells the
+// K7 solve from K5's kernel.
+// Bound, as K3 and K5, by the latency of the n sequential pivots. Design of
+// the factorization: one warp per matrix, lanes over rows, the matrix in
+// shared memory (ld = n + 1); per pivot the lanes scale their rows of
+// column j, then sweep the trailing columns k > j, lane l updating rows
+// k + l, k + l + 32, ... of column k. Warp barriers only, no block barrier.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -57,6 +74,35 @@ __global__ void chol_kernel(const float* __restrict__ H, float* __restrict__ L, 
   }
 }
 
+__global__ void chol_unblocked_kernel(const float* __restrict__ H, float* __restrict__ L, int n) {
+  extern __shared__ float a[];
+  const int ld = n + 1;
+  const int lane = threadIdx.x;   // one warp per block
+  const float* Hb = H + (long)blockIdx.x * n * n;
+  float* Lb = L + (long)blockIdx.x * n * n;
+  for (int idx = lane; idx < n * n; idx += 32) {
+    const int i = idx / n, k = idx - i * n;
+    if (k <= i) a[i * ld + k] = Hb[idx];
+  }
+  __syncwarp();
+  for (int j = 0; j < n; ++j) {
+    const float inv = rsqrtf(a[j * ld + j]);
+    __syncwarp();
+    for (int i = j + lane; i < n; i += 32) a[i * ld + j] *= inv;
+    __syncwarp();
+    for (int k = j + 1; k < n; ++k) {
+      const float lk = a[k * ld + j];
+      for (int i = k + lane; i < n; i += 32) a[i * ld + k] -= a[i * ld + j] * lk;
+    }
+    __syncwarp();
+  }
+  for (int idx = lane; idx < n * n; idx += 32) {
+    const int i = idx / n, k = idx - i * n;
+    Lb[idx] = (k <= i) ? a[i * ld + k] : 0.0f;
+  }
+}
+
+template <bool RECIP>
 __global__ void chol_solve_kernel(const float* __restrict__ L, const float* __restrict__ b,
                                   float* __restrict__ x, int n) {
   extern __shared__ float sl[];
@@ -75,7 +121,7 @@ __global__ void chol_solve_kernel(const float* __restrict__ L, const float* __re
     const int i = r * 32 + tid;
     xr[r] = (i < n) ? b[(long)blockIdx.x * n + i] : 0.0f;
   }
-  warp_chol_solve<MAXR>(sl, ld, n, xr);
+  warp_chol_solve<MAXR, RECIP>(sl, ld, n, xr);
 #pragma unroll
   for (int r = 0; r < MAXR; ++r) {
     const int i = r * 32 + tid;
@@ -96,13 +142,34 @@ extern "C" int cholesky_f32(const float* H, float* L, int batch, int n, void* st
   return (int)cudaGetLastError();
 }
 
-extern "C" int chol_solve_f32(const float* L, const float* b, float* x, int batch, int n,
-                              void* stream) {
+template <bool RECIP>
+static int launch_solve(const float* L, const float* b, float* x, int batch, int n,
+                        void* stream) {
   if (batch <= 0) return 0;
   if (n > 32 * MAXR) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (size_t)n * (n + 1);
-  cudaError_t err = set_smem((const void*)chol_solve_kernel, smem);
+  cudaError_t err = set_smem((const void*)chol_solve_kernel<RECIP>, smem);
   if (err != cudaSuccess) return (int)err;
-  chol_solve_kernel<<<batch, 128, smem, static_cast<cudaStream_t>(stream)>>>(L, b, x, n);
+  chol_solve_kernel<RECIP><<<batch, 128, smem, static_cast<cudaStream_t>(stream)>>>(L, b, x, n);
   return (int)cudaGetLastError();
+}
+
+extern "C" int chol_solve_f32(const float* L, const float* b, float* x, int batch, int n,
+                              void* stream) {
+  return launch_solve<false>(L, b, x, batch, n, stream);
+}
+
+// K7: the caller ensures n (n + 1) floats fit in shared memory.
+extern "C" int cholesky_unblocked_f32(const float* H, float* L, int batch, int n, void* stream) {
+  if (batch <= 0) return 0;
+  const size_t smem = sizeof(float) * (size_t)n * (n + 1);
+  cudaError_t err = set_smem((const void*)chol_unblocked_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  chol_unblocked_kernel<<<batch, 32, smem, static_cast<cudaStream_t>(stream)>>>(H, L, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int chol_solve_unblocked_f32(const float* L, const float* b, float* x, int batch,
+                                        int n, void* stream) {
+  return launch_solve<true>(L, b, x, batch, n, stream);
 }

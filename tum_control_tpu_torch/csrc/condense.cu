@@ -1,4 +1,4 @@
-// K2 and K6: condensing of the stage sensitivities.
+// K2, K6 and K8: condensing of the stage sensitivities.
 //
 // K2 replaces ops/pallas_kernels/condense.py::_make_kernel (launched by
 // _condense_tpu) of the JAX package. Per scenario:
@@ -14,7 +14,7 @@
 // beyond the uncertainty horizon with it; Gam0 is the head's carry and is
 // nonzero in its first col0 columns, so no column may be assumed zero.
 //
-// What bounds both: bytes. Per scenario they write (N+1) nx nz floats of Gam
+// What bounds K2 and K6: bytes. Per scenario they write (N+1) nx nz floats of Gam
 // (95 KB at N=38, nx=8, nu=2; K6 at N2=33, nz=76: 83 KB), against
 // nx^2 nz FMAs per stage; the recurrence is sequential in the stage. Design:
 // one block per scenario; A, B, xi of the scenario and a double-buffered
@@ -22,6 +22,21 @@
 // per Gam entry, and each stage's Gam goes to device memory once, in
 // coalesced rows. One kernel body serves both: FROM selects the initial carry
 // (loaded for K6, (d0, 0) for K2), col0 is 0 for K2.
+//
+// K8 replaces ops/pallas_kernels/condense.py::_make_mxu_kernel (launched by
+// _condense_tpu_mxu), which no caller of the JAX package reaches: the same
+// recurrence on an augmented carry G = [Gam | e] of nx x (nz+1), stage 0 =
+// [0 | d0], then per stage G <- A_k G, the columns k nu .. (k+1) nu of G
+// *assigned* B_k, and xi_k added to the e column. It writes one
+// (N+1, nx, nz+1) tensor per scenario. The TPU kernel packs 128/nx scenarios
+// block-diagonally into one 128x128 MXU product per stage, wasting 15/16 of
+// the work; that packing is not carried over, and no tensor-core mode is
+// used (TF32 per-stage products cost ~2e-2 relative error in this
+// recurrence). Design: one block per scenario, A, B, xi in shared memory,
+// one thread per augmented column holding that column (nx <= 16 values) in
+// registers, so a stage needs no barrier; each stage's rows go to device
+// memory coalesced across the threads. Bound by bytes too: (N+1) nx (nz+1)
+// floats written per scenario.
 #include <cuda_runtime.h>
 
 template <bool FROM>
@@ -111,4 +126,74 @@ extern "C" int condense_from_f32(const float* A, const float* Bm, const float* x
                                  int batch, int N2, int nx, int nu, int nz, int col0,
                                  void* stream) {
   return launch<true>(A, Bm, xi, e0, G0, e_out, gam_out, batch, N2, nx, nu, nz, col0, stream);
+}
+
+constexpr int AUG_MAX_NX = 16;  // register carry per column thread
+
+__global__ void condense_aug_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
+                                    const float* __restrict__ xi, const float* __restrict__ d0,
+                                    float* __restrict__ out, int N, int nx, int nu) {
+  extern __shared__ float sm[];
+  const int b = blockIdx.x;
+  const int z = threadIdx.x, bs = blockDim.x;
+  const int nz = N * nu, w = nz + 1;
+  float* sA = sm;                    // N nx nx
+  float* sB = sA + N * nx * nx;      // N nx nu
+  float* sxi = sB + N * nx * nu;     // N nx
+  const float* Ab = A + (long)b * N * nx * nx;
+  const float* Bb = Bm + (long)b * N * nx * nu;
+  const float* xib = xi + (long)b * N * nx;
+  for (int i = z; i < N * nx * nx; i += bs) sA[i] = Ab[i];
+  for (int i = z; i < N * nx * nu; i += bs) sB[i] = Bb[i];
+  for (int i = z; i < N * nx; i += bs) sxi[i] = xib[i];
+  __syncthreads();
+  if (z >= w) return;
+
+  // thread z owns column z of the carry: Gam's columns, then e at z = nz
+  float g[AUG_MAX_NX];
+#pragma unroll
+  for (int i = 0; i < AUG_MAX_NX; ++i) g[i] = (i < nx && z == nz) ? d0[(long)b * nx + i] : 0.0f;
+  float* ob = out + (long)b * (N + 1) * nx * w;
+#pragma unroll
+  for (int i = 0; i < AUG_MAX_NX; ++i)
+    if (i < nx) ob[i * w + z] = g[i];
+  for (int k = 0; k < N; ++k) {
+    const float* Ak = sA + k * nx * nx;
+    float gn[AUG_MAX_NX];
+#pragma unroll
+    for (int i = 0; i < AUG_MAX_NX; ++i) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int m = 0; m < AUG_MAX_NX; ++m)
+        if (i < nx && m < nx) acc += Ak[i * nx + m] * g[m];
+      gn[i] = acc;
+    }
+    const int q = z - k * nu;
+    float* o = ob + (long)(k + 1) * nx * w;
+#pragma unroll
+    for (int i = 0; i < AUG_MAX_NX; ++i) {
+      if (i < nx) {
+        if (q >= 0 && q < nu) gn[i] = sB[(k * nx + i) * nu + q];   // assigned, not added
+        if (z == nz) gn[i] += sxi[k * nx + i];
+        g[i] = gn[i];
+        o[i * w + z] = g[i];
+      }
+    }
+  }
+}
+
+// K8: out (batch, N+1, nx, nz+1) = the augmented carries [Gam_k | e_k]. The
+// caller ensures nx <= 16, N nu + 1 <= 1024 and that the shared memory fits.
+extern "C" int condense_aug_f32(const float* A, const float* Bm, const float* xi, const float* d0,
+                                float* out, int batch, int N, int nx, int nu, void* stream) {
+  if (batch <= 0) return 0;
+  if (nx > AUG_MAX_NX || N * nu + 1 > 1024) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * ((size_t)N * nx * nx + (size_t)N * nx * nu + (size_t)N * nx);
+  cudaError_t err = cudaFuncSetAttribute(condense_aug_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = ((N * nu + 1 + 31) / 32) * 32;
+  condense_aug_kernel<<<batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      A, Bm, xi, d0, out, N, nx, nu);
+  return (int)cudaGetLastError();
 }

@@ -13,11 +13,21 @@
 // L is row-major with leading dimension `ld`, normally in shared memory with
 // ld = n + 1 (odd), so that the column reads of the forward pass
 // (lanes on rows i, fixed column j) fall in distinct banks.
+//
+// RECIP selects the unblocked TPU kernel's arithmetic (chol.py::_solve_kernel,
+// K7): each step multiplies by the reciprocal of the pivot, x_j (1 / L_jj),
+// where the blocked kernels divide, x_j / L_jj. The two differ by one rounding
+// per step, below every tolerance of the repo (see chol.cu).
 #pragma once
 
 #include "common.cuh"
 
-template <int MAXR>
+template <bool RECIP>
+__device__ __forceinline__ float pivot_div(float x, float d) {
+  return RECIP ? x * (1.0f / d) : x / d;
+}
+
+template <int MAXR, bool RECIP = false>
 __device__ __forceinline__ void warp_chol_solve(const float* L, int ld, int n, float (&x)[MAXR]) {
   const int lane = threadIdx.x & 31;
   // forward: L y = b
@@ -26,7 +36,7 @@ __device__ __forceinline__ void warp_chol_solve(const float* L, int ld, int n, f
     for (int o = 0; o < 32; ++o) {
       const int j = s * 32 + o;
       if (j >= n) break;
-      const float yj = __shfl_sync(FULL_MASK, x[s], o) / L[j * ld + j];
+      const float yj = pivot_div<RECIP>(__shfl_sync(FULL_MASK, x[s], o), L[j * ld + j]);
 #pragma unroll
       for (int r = s; r < MAXR; ++r) {
         const int i = r * 32 + lane;
@@ -41,7 +51,7 @@ __device__ __forceinline__ void warp_chol_solve(const float* L, int ld, int n, f
     for (int o = 31; o >= 0; --o) {
       const int j = s * 32 + o;
       if (j >= n) continue;
-      const float xj = __shfl_sync(FULL_MASK, x[s], o) / L[j * ld + j];
+      const float xj = pivot_div<RECIP>(__shfl_sync(FULL_MASK, x[s], o), L[j * ld + j]);
 #pragma unroll
       for (int r = 0; r <= s; ++r) {
         const int i = r * 32 + lane;

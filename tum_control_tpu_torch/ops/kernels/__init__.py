@@ -1,2 +1,2 @@
-"""Hand-written Hopper kernels of the nominal closed loop and their plain
-PyTorch versions (one module per TPU kernel file of the JAX package)."""
+"""Hand-written Hopper kernels (K1-K8) and their plain PyTorch versions (one
+module per TPU kernel file of the JAX package)."""

@@ -32,7 +32,8 @@ NVCC_FLAGS = (
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"linearize": 0, "condense": 0, "condense_from": 0, "cholesky": 0, "chol_solve": 0,
-            "ipm_iteration": 0}
+            "ipm_iteration": 0, "condense_mxu": 0, "cholesky_unblocked": 0,
+            "chol_solve_unblocked": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points of each library: argument types (every pointer and the
@@ -40,8 +41,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "linearize": {"linearize_f32": [_P, _P, _P, _I, _P, _I, _P]},
     "condense": {"condense_f32": [_P] * 6 + [_I] * 4 + [_P],
-                 "condense_from_f32": [_P] * 7 + [_I] * 6 + [_P]},
-    "chol": {"cholesky_f32": [_P, _P, _I, _I, _P], "chol_solve_f32": [_P, _P, _P, _I, _I, _P]},
+                 "condense_from_f32": [_P] * 7 + [_I] * 6 + [_P],
+                 "condense_aug_f32": [_P] * 5 + [_I] * 4 + [_P]},
+    "chol": {"cholesky_f32": [_P, _P, _I, _I, _P], "chol_solve_f32": [_P, _P, _P, _I, _I, _P],
+             "cholesky_unblocked_f32": [_P, _P, _I, _I, _P],
+             "chol_solve_unblocked_f32": [_P, _P, _P, _I, _I, _P]},
     "ipm_iter": {"ipm_iteration_f32": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _P]},
 }
 

@@ -11,6 +11,16 @@ the TPU's pad to a multiple of 16, and its factor is an ordinary
   * `cholesky`, `chol_solve`: the wrappers. CPU tensors -> the plain loops;
     CUDA float32 tensors -> csrc/chol.cu; anything else raises.
 
+K7 ports the unblocked TPU kernels `_chol_kernel` and `_solve_kernel`,
+which no `pallas_call` of the JAX package passes (so no path of the port
+launches them either), with their arithmetic: each pivot scales its column
+by rsqrt(a_jj), the solve multiplies by 1 / L_jj:
+
+  * `cholesky_unblocked_ref`, `chol_solve_unblocked_ref`: the same pivot
+    loops in plain PyTorch;
+  * `cholesky_unblocked`, `chol_solve_unblocked`: the wrappers, dispatching
+    as K3 and K5 do, to csrc/chol.cu's `*_unblocked_f32` entry points.
+
 `torch.linalg.cholesky` / `torch.cholesky_solve` compute the same functions;
 they are timing yardsticks only and are not used here.
 """
@@ -22,6 +32,7 @@ import torch
 from tum_control_tpu_torch.ops.kernels import build
 
 MAX_N_SOLVE = 128  # csrc/trisolve.cuh holds at most 4 rows per lane
+SMEM_BYTES = 232448   # shared memory a block may use on Hopper
 
 
 def cholesky_ref(H):
@@ -96,3 +107,74 @@ def chol_solve(L, b):
     if build.use_kernel(L, b):
         return chol_solve_cuda(L, b)
     return chol_solve_ref(L, b)
+
+
+def cholesky_unblocked_ref(H):
+    """(B, n, n) SPD -> lower factor L by K7's pivot loop: column j scaled by
+    rsqrt(a_jj), then the rank-1 update of the trailing lower triangle."""
+    n = H.shape[-1]
+    A = H.clone()
+    for j in range(n):
+        col = A[:, j:, j] * torch.rsqrt(A[:, j, j])[:, None]
+        A[:, j:, j] = col
+        A[:, j + 1:, j + 1:] -= col[:, 1:, None] * col[:, None, 1:]
+    return torch.tril(A)
+
+
+def chol_solve_unblocked_ref(L, b):
+    """(B, n, n) lower factor, (B, n) -> x with L L^T x = b by K7's column-wise
+    forward and row-wise backward substitution (multiplying by 1 / L_jj)."""
+    n = L.shape[-1]
+    x = b.clone()
+    for j in range(n):
+        x[:, j] = x[:, j] * (1.0 / L[:, j, j])
+        x[:, j + 1:] -= L[:, j + 1:, j] * x[:, j:j + 1]
+    for j in range(n - 1, -1, -1):
+        x[:, j] = x[:, j] * (1.0 / L[:, j, j])
+        x[:, :j] -= L[:, j, :j] * x[:, j:j + 1]
+    return x
+
+
+def cholesky_unblocked_cuda(H):
+    _check_square(H)
+    B, n, _ = H.shape
+    if 4 * n * (n + 1) > SMEM_BYTES:
+        raise ValueError(f"cholesky_unblocked: n = {n} exceeds the kernel's shared memory")
+    L = torch.empty_like(H)
+    fn = build.library("chol").cholesky_unblocked_f32
+    with torch.cuda.device(H.device):
+        status = fn(build.ptr(H), build.ptr(L), B, n, build.stream_of(H))
+    build.check_status("cholesky_unblocked_f32", status)
+    build.LAUNCHES["cholesky_unblocked"] += 1
+    return L
+
+
+def chol_solve_unblocked_cuda(L, b):
+    _check_square(L)
+    B, n, _ = L.shape
+    if b.shape != (B, n):
+        raise ValueError(f"chol_solve_unblocked: rhs {tuple(b.shape)} does not match L "
+                         f"{tuple(L.shape)}")
+    if n > MAX_N_SOLVE:
+        raise ValueError(f"chol_solve_unblocked kernel supports n <= {MAX_N_SOLVE}, got {n}")
+    x = torch.empty_like(b)
+    fn = build.library("chol").chol_solve_unblocked_f32
+    with torch.cuda.device(L.device):
+        status = fn(build.ptr(L), build.ptr(b), build.ptr(x), B, n, build.stream_of(L))
+    build.check_status("chol_solve_unblocked_f32", status)
+    build.LAUNCHES["chol_solve_unblocked"] += 1
+    return x
+
+
+def cholesky_unblocked(H):
+    """Batched lower Cholesky factor (K7); dispatches by device."""
+    if build.use_kernel(H):
+        return cholesky_unblocked_cuda(H)
+    return cholesky_unblocked_ref(H)
+
+
+def chol_solve_unblocked(L, b):
+    """Batched L L^T x = b (K7); dispatches by device."""
+    if build.use_kernel(L, b):
+        return chol_solve_unblocked_cuda(L, b)
+    return chol_solve_unblocked_ref(L, b)

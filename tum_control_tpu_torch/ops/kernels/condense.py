@@ -25,6 +25,17 @@ the columns col0 + t nu .. col0 + (t+1) nu of an nz-wide Gam:
   * `condense_from_ref`: the plain version (`condense_scan_from_ref`, batched);
   * `condense_from`: the wrapper; CPU -> `condense_from_ref`, CUDA float32
     -> csrc/condense.cu (`condense_from_f32`), anything else raises.
+
+K8 ports `_make_mxu_kernel` (launched by `_condense_tpu_mxu`, which no
+caller of the JAX package reaches, so no path of the port does either): the
+K2 recurrence on an augmented carry [Gam | e] of nx x (nz+1), stage k's B
+*assigned* to its columns and xi_k added to the e column:
+
+  * `condense_mxu_ref`: the plain version of those semantics, batched;
+  * `condense_mxu`: the wrapper; CPU -> `condense_mxu_ref`, CUDA float32 ->
+    csrc/condense.cu (`condense_aug_f32`, one (B, N+1, nx, nz+1) output),
+    anything else raises, as does a shape the kernel cannot hold. Both
+    return (e, Gam) = (out[..., nz], out[..., :nz]), as the JAX function.
 """
 from __future__ import annotations
 
@@ -112,3 +123,52 @@ def condense_from(A, B, xi, e0, G0, col0: int):
     if build.use_kernel(A, B, xi, e0, G0):
         return condense_from_cuda(A, B, xi, e0, G0, col0)
     return condense_from_ref(A, B, xi, e0, G0, col0)
+
+
+SMEM_BYTES = 232448   # shared memory a block may use on Hopper
+MAX_NX_AUG = 16       # K8 keeps each augmented column (nx values) in registers
+
+
+def condense_mxu_ref(A, B, xi, d0):
+    """A (Bt,N,nx,nx), B (Bt,N,nx,nu), xi (Bt,N,nx), d0 (Bt,nx) ->
+    (e (Bt,N+1,nx), Gam (Bt,N+1,nx,nz)) through the augmented carry."""
+    Bt, N, nx, nu = B.shape
+    nz = N * nu
+    G = torch.cat([A.new_zeros((Bt, nx, nz)), d0[..., None]], dim=-1)
+    outs = [G]
+    for k in range(N):
+        G = torch.matmul(A[:, k], G)
+        G[:, :, k * nu:(k + 1) * nu] = B[:, k]
+        G[:, :, nz] += xi[:, k]
+        outs.append(G)
+    out = torch.stack(outs, dim=1)
+    return out[..., nz], out[..., :nz]
+
+
+def condense_mxu_cuda(A, B, xi, d0):
+    """Launch csrc/condense.cu (K8) on contiguous CUDA float32 tensors."""
+    Bt, N, nx, nu = B.shape
+    if A.shape != (Bt, N, nx, nx) or xi.shape != (Bt, N, nx) or d0.shape != (Bt, nx):
+        raise ValueError("condense_mxu: inconsistent shapes "
+                         f"{tuple(A.shape)} {tuple(B.shape)} {tuple(xi.shape)} {tuple(d0.shape)}")
+    nz = N * nu
+    smem = 4 * N * nx * (nx + nu + 1)
+    if nx > MAX_NX_AUG or nz + 1 > 1024 or smem > SMEM_BYTES:
+        raise ValueError(f"condense_mxu: K8 takes nx <= {MAX_NX_AUG}, N nu + 1 <= 1024 threads "
+                         f"and {SMEM_BYTES} bytes of shared memory; got nx = {nx}, "
+                         f"N nu = {nz}, {smem} bytes")
+    out = torch.empty((Bt, N + 1, nx, nz + 1), dtype=A.dtype, device=A.device)
+    fn = build.library("condense").condense_aug_f32
+    with torch.cuda.device(A.device):
+        status = fn(build.ptr(A), build.ptr(B), build.ptr(xi), build.ptr(d0), build.ptr(out),
+                    Bt, N, nx, nu, build.stream_of(A))
+    build.check_status("condense_aug_f32", status)
+    build.LAUNCHES["condense_mxu"] += 1
+    return out[..., nz], out[..., :nz]
+
+
+def condense_mxu(A, B, xi, d0):
+    """Augmented-carry condensing (K8); dispatches by device (module doc)."""
+    if build.use_kernel(A, B, xi, d0):
+        return condense_mxu_cuda(A, B, xi, d0)
+    return condense_mxu_ref(A, B, xi, d0)

@@ -15,10 +15,11 @@ One `solve_full` per control step, for B scenarios at once:
      KKT residual exceeds `kkt_fail_rel` (acados status 3), per scenario.
 
 A controller may replace steps 1-3 by `build_qp` + `expand_dx` (SNMPC's
-structured path: K1 + K6). The JAX package's `lin_condense`, `y_jac` and
+structured path: K1 + K6). A solve may override the engine's weights, bounds
+and slack penalties per scenario through `QPMods` (WMPC's weight swaps,
+R2NMPC's bound tightening). The JAX package's `lin_condense`, `y_jac` and
 `con_jac` hooks are left out: no path of the port would take them. The
-`resid_stage` (EXTERNAL cost) branch, `lm_reg` and `QPMods` wait for their
-slices.
+`resid_stage` (EXTERNAL cost) branch and `lm_reg` wait for their slice.
 """
 from __future__ import annotations
 
@@ -49,8 +50,9 @@ class OCPFunctions(NamedTuple):
     y_select / y_select_term: state indices of the leading y rows, when
         y = [x[sel] (unit Jacobian), u]
     build_qp : (X, U, x0, yref, yref_e, merged) -> (CondensedQP, aux), the
-        whole QP assembly; `merged` is the engine's (W, We, con_lb, con_ub,
-        con_z1, con_z2, u_lb, u_ub, u_z1, u_z2)
+        whole QP assembly; `merged` is `RTIEngine._merged(mods)`, the
+        (W, We, con_lb, con_ub, con_z1, con_z2, u_lb, u_ub, u_z1, u_z2) of
+        this solve, each unbatched (static) or batched (a QPMods field)
     expand_dx: (aux, w (B, nz)) -> dX (B, N+1, nx); required with build_qp
     """
 
@@ -63,6 +65,29 @@ class OCPFunctions(NamedTuple):
     y_select_term: tuple = None
     build_qp: Callable = None
     expand_dx: Callable = None
+
+
+class QPMods(NamedTuple):
+    """Per-solve, per-scenario overrides of the engine's static QP data
+    (WMPC: cost weights and slack penalties; R2NMPC: constraint-bound
+    tightening). A `None` field falls back to the engine's static tensor."""
+
+    W: torch.Tensor = None       # (B, ny)
+    We: torch.Tensor = None      # (B, ny_e)
+    con_lb: torch.Tensor = None  # (B, N+1, nc)
+    con_ub: torch.Tensor = None  # (B, N+1, nc)
+    con_z1: torch.Tensor = None  # (B, N+1, nc)
+    con_z2: torch.Tensor = None  # (B, N+1, nc)
+    u_lb: torch.Tensor = None    # (B, N, nu)
+    u_ub: torch.Tensor = None    # (B, N, nu)
+    u_z1: torch.Tensor = None    # (B, N, nu)
+    u_z2: torch.Tensor = None    # (B, N, nu)
+
+
+def qp_rows(con, u, B):
+    """One (B, nc_total) QP row field: the general rows' (N+1, nc) values
+    first, the input rows' (N, nu) last; either part may be unbatched."""
+    return torch.cat([con.flatten(-2).expand(B, -1), u.flatten(-2).expand(B, -1)], dim=1)
 
 
 class RTIState(NamedTuple):
@@ -108,16 +133,10 @@ class RTIEngine:
         self.W, self.We = W, We
         self.con_lb, self.con_ub, self.con_z1, self.con_z2 = con_lb, con_ub, con_z1, con_z2
         self.u_lb, self.u_ub, self.u_z1, self.u_z2 = u_lb, u_ub, u_z1, u_z2
-        self.merged = (W, We, con_lb, con_ub, con_z1, con_z2, u_lb, u_ub, u_z1, u_z2)
         self.newton_iters = newton_iters
         self.sqp_iters = sqp_iters
         self.kkt_fail_rel = kkt_fail_rel
         self.nc_total = (N + 1) * con_lb.shape[1] + N * nu
-        # QP row data: general (state-constraint) rows first, input rows last
-        self.row_lb = torch.cat([con_lb.reshape(-1), u_lb.reshape(-1)])
-        self.row_ub = torch.cat([con_ub.reshape(-1), u_ub.reshape(-1)])
-        self.row_z1 = torch.cat([con_z1.reshape(-1), u_z1.reshape(-1)])
-        self.row_z2 = torch.cat([con_z2.reshape(-1), u_z2.reshape(-1)])
         # E_k = d(vec dU)/d(du_k): (N, nu, nz) selector
         self.E = torch.eye(self.nz, dtype=W.dtype, device=W.device).reshape(N, nu, self.nz)
 
@@ -143,25 +162,39 @@ class RTIEngine:
         of shape (B, N, nx, nx), as a broadcast view (no memory)."""
         return x.new_zeros(()).expand(x.shape[0], self.N, self.nx, self.nx)
 
-    def _gn_assemble(self, r0, M, re0, Me):
+    def _merged(self, mods: QPMods = None):
+        """This solve's (W, We, con_lb, con_ub, con_z1, con_z2, u_lb, u_ub,
+        u_z1, u_z2): each field of `mods` where it is set (batched), else the
+        engine's static tensor (unbatched). Consumers broadcast both."""
+        static = (self.W, self.We, self.con_lb, self.con_ub, self.con_z1, self.con_z2,
+                  self.u_lb, self.u_ub, self.u_z1, self.u_z2)
+        if mods is None:
+            return static
+        return tuple(s if m is None else m for m, s in zip(mods, static))
+
+    @staticmethod
+    def _gn_assemble(r0, M, re0, Me, W, We):
         """Condensed Gauss-Newton blocks from stage residuals (B, N, ny) and
-        Jacobians (B, N, ny, nz): H0 = M' W M + Me' We Me, g0 = M' W r + Me' We re."""
+        Jacobians (B, N, ny, nz): H0 = M' W M + Me' We Me, g0 = M' W r + Me' We re;
+        W (ny,) or (B, ny), We (ny_e,) or (B, ny_e)."""
         B, N, ny, nz = M.shape
         Mf = M.reshape(B, N * ny, nz)
-        wts = self.W.repeat(N)
-        H0 = (torch.matmul((Mf * wts[:, None]).transpose(1, 2), Mf)
-              + torch.matmul((Me * self.We[:, None]).transpose(1, 2), Me))
-        g0 = mtv(Mf, wts * r0.reshape(B, -1)) + mtv(Me, self.We * re0)
+        wts = torch.tile(W, (N,))
+        H0 = (torch.matmul((Mf * wts[..., None]).transpose(1, 2), Mf)
+              + torch.matmul((Me * We[..., None]).transpose(1, 2), Me))
+        g0 = mtv(Mf, wts * r0.reshape(B, -1)) + mtv(Me, We * re0)
         return H0, g0
 
-    def _build_qp(self, state: RTIState, x0, yref, yref_e):
+    def _build_qp(self, state: RTIState, x0, yref, yref_e, mods: QPMods = None):
         """(qp, e, Gam, A_lin); on the build_qp path e holds its aux and Gam is None."""
         f = self.funcs
         N, nx, nz = self.N, self.nx, self.nz
         B = x0.shape[0]
+        merged = self._merged(mods)
         if f.build_qp is not None:
-            qp, aux = f.build_qp(state.X, state.U, x0, yref, yref_e, self.merged)
+            qp, aux = f.build_qp(state.X, state.U, x0, yref, yref_e, merged)
             return qp, aux, None, self._zero_A(x0)
+        W, We, con_lb, con_ub, con_z1, con_z2, u_lb, u_ub, u_z1, u_z2 = merged
         d0 = x0 - state.X[:, 0]
         A, Bm, xi = self._linearize(state)
         e, Gam = condense(A, Bm, xi.contiguous(), d0.contiguous())
@@ -174,20 +207,20 @@ class RTIEngine:
             Y = f.y_stage(state.X[:, :-1], state.U)                   # (B, N, ny)
             r_x = Y[..., :ns] - yref[..., :ns] + e[:, :N][..., sel]     # (B, N, ns)
             r_u = Y[..., ns:] - yref[..., ns:]                          # (B, N, nu)
-            Wx, Wu = self.W[:ns], self.W[ns:]
+            Wx, Wu = W[..., :ns], W[..., ns:]
             Mf4 = Gam[:, :N][:, :, sel, :].reshape(B, N * ns, nz)
-            wtsx = Wx.repeat(N)
+            wtsx = torch.tile(Wx, (N,))
             re0 = f.y_term(state.X[:, N]) - yref_e + e[:, N][:, sel_e]
             Me = Gam[:, N][:, sel_e, :]                                 # (B, ny_e, nz)
             H0 = (
-                torch.matmul((Mf4 * wtsx[:, None]).transpose(1, 2), Mf4)
-                + torch.matmul((Me * self.We[:, None]).transpose(1, 2), Me)
-                + torch.diag(Wu.repeat(N))
+                torch.matmul((Mf4 * wtsx[..., None]).transpose(1, 2), Mf4)
+                + torch.matmul((Me * We[..., None]).transpose(1, 2), Me)
+                + torch.diag_embed(torch.tile(Wu, (N,)))
             )
             g0 = (
                 mtv(Mf4, wtsx * r_x.reshape(B, -1))
-                + (Wu * r_u).reshape(B, -1)
-                + mtv(Me, self.We * re0)
+                + (Wu.unsqueeze(-2) * r_u).reshape(B, -1)
+                + mtv(Me, We * re0)
             )
         else:
             # --- Gauss-Newton cost from the output Jacobians ---
@@ -199,35 +232,34 @@ class RTIEngine:
             ye, Jye = jacobian_fwd(f.y_term, state.X[:, N])
             re0 = ye - yref_e + torch.matmul(Jye, e[:, N, :, None])[..., 0]
             Me = torch.matmul(Jye, Gam[:, N])
-            H0, g0 = self._gn_assemble(r0, M, re0, Me)
+            H0, g0 = self._gn_assemble(r0, M, re0, Me, W, We)
 
         # --- constraint rows: value + Jacobian of con_stage at every node ---
         C, Jc = jacobian_fwd(f.con_stage, state.X)                    # (B,N+1,nc), (B,N+1,nc,nx)
         c0_c = C + torch.sum(Jc * e[:, :, None, :], dim=-1)
         G = torch.matmul(Jc, Gam).reshape(B, -1, nz)
         c0 = torch.cat([c0_c.reshape(B, -1), state.U.reshape(B, -1)], dim=1)
-        rows = lambda t: t.expand(B, -1).contiguous()
-        qp = CondensedQP(H0=H0, g0=g0, G=G.contiguous(), c0=c0, lb=rows(self.row_lb),
-                         ub=rows(self.row_ub), z1=rows(self.row_z1), z2=rows(self.row_z2))
+        qp = CondensedQP(H0=H0, g0=g0, G=G.contiguous(), c0=c0, lb=qp_rows(con_lb, u_lb, B),
+                         ub=qp_rows(con_ub, u_ub, B), z1=qp_rows(con_z1, u_z1, B),
+                         z2=qp_rows(con_z2, u_z2, B))
         return qp, e, Gam, A
 
     # ------------------------------------------------------------------
-    def nonlinear_cost(self, state: RTIState, yref, yref_e):
+    def nonlinear_cost(self, state: RTIState, yref, yref_e, mods: QPMods = None):
         """acados `get_cost()` analog: LS cost + slack penalties, (B,)."""
+        W, We, con_lb, con_ub, con_z1, con_z2, u_lb, u_ub, u_z1, u_z2 = self._merged(mods)
         N = self.N
         r = self.funcs.y_stage(state.X[:, :-1], state.U) - yref
-        cost = 0.5 * torch.sum(r * r * self.W, dim=(1, 2))
+        cost = 0.5 * torch.sum(r * r * W.unsqueeze(-2), dim=(1, 2))
         re = self.funcs.y_term(state.X[:, N]) - yref_e
-        cost = cost + 0.5 * torch.sum(re * re * self.We, dim=1)
+        cost = cost + 0.5 * torch.sum(re * re * We, dim=1)
         C = self.funcs.con_stage(state.X)
-        du = torch.clamp(C - self.con_ub, min=0.0)
-        dl = torch.clamp(self.con_lb - C, min=0.0)
-        cost = cost + torch.sum(self.con_z1 * (du + dl) + 0.5 * self.con_z2 * (du**2 + dl**2),
-                                dim=(1, 2))
-        duu = torch.clamp(state.U - self.u_ub, min=0.0)
-        dul = torch.clamp(self.u_lb - state.U, min=0.0)
-        return cost + torch.sum(self.u_z1 * (duu + dul) + 0.5 * self.u_z2 * (duu**2 + dul**2),
-                                dim=(1, 2))
+        du = torch.clamp(C - con_ub, min=0.0)
+        dl = torch.clamp(con_lb - C, min=0.0)
+        cost = cost + torch.sum(con_z1 * (du + dl) + 0.5 * con_z2 * (du**2 + dl**2), dim=(1, 2))
+        duu = torch.clamp(state.U - u_ub, min=0.0)
+        dul = torch.clamp(u_lb - state.U, min=0.0)
+        return cost + torch.sum(u_z1 * (duu + dul) + 0.5 * u_z2 * (duu**2 + dul**2), dim=(1, 2))
 
     # ------------------------------------------------------------------
     def solve(self, state: RTIState, x0, yref, yref_e, mods=None):
@@ -235,19 +267,18 @@ class RTIEngine:
         u0, new_state, stats, _ = self.solve_full(state, x0, yref, yref_e, mods)
         return u0, new_state, stats
 
-    def solve_full(self, state: RTIState, x0, yref, yref_e, mods=None):
-        """One RTI returning also the dynamics sensitivities A (B, N, nx, nx).
+    def solve_full(self, state: RTIState, x0, yref, yref_e, mods: QPMods = None):
+        """One RTI returning also the dynamics sensitivities A (B, N, nx, nx)
+        of this solve's linearization (R2NMPC's covariance propagation).
 
         A scenario whose result fails the health check keeps its previous
         iterate and gets status 3; the caller re-initializes it."""
-        if mods is not None:
-            raise NotImplementedError("QPMods (WMPC / R2NMPC) wait for their slice of the port")
         B = x0.shape[0]
         it_state = state
         qp_iter_max = torch.zeros((B,), dtype=torch.int32, device=x0.device)
         gap_last = torch.zeros((B,), dtype=x0.dtype, device=x0.device)
         for _ in range(self.sqp_iters):
-            qp, e, Gam, A_lin = self._build_qp(it_state, x0, yref, yref_e)
+            qp, e, Gam, A_lin = self._build_qp(it_state, x0, yref, yref_e, mods)
             w, kkt, warm_out, ipm_stats = solve_soft_qp_ipm(
                 qp, n_iters=self.newton_iters, n_polish=1, warm=it_state.warm, want_stats=True
             )
@@ -277,7 +308,7 @@ class RTIEngine:
             warm=IPMWarm(*(keep(n, o) for n, o in zip(it_state.warm, state.warm))),
         )
         stats = SolverStats(
-            cost=self.nonlinear_cost(new_state, yref, yref_e),
+            cost=self.nonlinear_cost(new_state, yref, yref_e, mods),
             kkt_res=kkt,
             sqp_iter=torch.full((B,), self.sqp_iters, dtype=torch.int32, device=x0.device),
             qp_iter=qp_iter_max,

@@ -32,7 +32,8 @@ PLANT_SUBSTEPS = 4  # CasADi 'rk' number_of_finite_elements
 
 class SimCarry(NamedTuple):
     ctrl_state: object        # controller warm-start state (RTIState)
-    extra: object             # controller-specific carried state (None for nominal)
+    extra: object             # controller-specific carried state (WMPC, R2NMPC corrections;
+    #                           None for a controller without `init_extra`)
     x_sim: torch.Tensor       # (B, 7) true plant state
     x_dist: torch.Tensor      # (B, 7) disturbed/measured plant state
     x_est: torch.Tensor       # (B, 8) estimated MPC state (controller input)
@@ -85,9 +86,10 @@ class ClosedLoopSim:
             raise ValueError("init_carry takes batched initial states (B, 8) and (B, 7)")
         if not isinstance(key, torch.Generator):
             key = make_generator(0 if key is None else key, x0_mpc.device)
+        init_extra = getattr(self.controller, "init_extra", None)
         return SimCarry(
             ctrl_state=self.controller.init_state(x0_mpc),
-            extra=None,
+            extra=None if init_extra is None else init_extra(x0_mpc),
             x_sim=x0_sim,
             x_dist=x0_sim,
             x_est=x0_mpc,
@@ -97,17 +99,24 @@ class ClosedLoopSim:
         )
 
     # ------------------------------------------------------------------
-    def step(self, carry: SimCarry, w_deriv_play, w_se_play) -> tuple:
+    def step(self, carry: SimCarry, w_deriv_play, w_se_play, mods=None) -> tuple:
         """One closed-loop step for every scenario; the playback inputs are
         (B, 7) recorded disturbances, used when the sim was built with
-        playback=True."""
+        playback=True. `mods` (a QPMods) overrides QP weights and bounds for
+        this solve."""
         B = carry.x_sim.shape[0]
         _, window = planner_emulator(self.traj, carry.pose, self.Tp, self.N + 1)
-        out, ctrl_state = self.controller.solve(carry.ctrl_state, carry.x_est, window)
+        if carry.extra is not None:
+            out, ctrl_state, extra = self.controller.solve_with_extra(
+                carry.ctrl_state, carry.extra, carry.x_est, window, mods=mods)
+        else:
+            out, ctrl_state = self.controller.solve(carry.ctrl_state, carry.x_est, window,
+                                                    mods=mods)
+            extra = None
         status = out.stats[:, 4]
 
         # solver failure -> re-initialize that scenario's solver memory at
-        # the current estimate
+        # the current estimate; `extra` stays as the controller returned it
         failed = status != 0
         reinit = self.controller.init_state(carry.x_est)
         pick = lambda a, b: torch.where(failed.view((B,) + (1,) * (a.dim() - 1)), a, b)
@@ -162,10 +171,11 @@ class ClosedLoopSim:
             vel_dev=carry.x_sim[:, 3] - window.v[:, 0],
             dist_deriv=w_deriv,
             dist_se=w_se,
-            wmpc_action=torch.full((B,), -1, dtype=torch.int32, device=yaw.device),
+            wmpc_action=(extra.action if hasattr(extra, "action")
+                         else torch.full((B,), -1, dtype=torch.int32, device=yaw.device)),
         )
         new_carry = SimCarry(
-            ctrl_state=ctrl_state, extra=None, x_sim=x_sim_next, x_dist=x_dist_next,
+            ctrl_state=ctrl_state, extra=extra, x_sim=x_sim_next, x_dist=x_dist_next,
             x_est=x_est_next, est_state=est_state, pose=pose_next, key=carry.key,
         )
         return new_carry, log
