@@ -13,29 +13,46 @@ Phases (any failure raises and the script exits non-zero):
      SNMPC's nominal tail, 33 stages from the carry of its 5 head stages;
      K8 on K2's inputs, K7 on K3's and K5's, since no path launches them)
      on inputs from a seeded numpy generator, holds it against its plain
-     PyTorch version on the same inputs, and times kernel, plain version
-     and (for K3, K5, K7) the PyTorch library call with CUDA events;
+     PyTorch version on the same inputs (K3 and K7 also on an
+     ill-conditioned IPM-shaped H, by backward error), and times it: the
+     kernel's device time over 100 back-to-back launches queued behind a
+     sleep (`device_ms`), one launch with the host's launch path
+     (`launch_ms`); the plain version per call; for K3, K5, K7 the PyTorch
+     library call's device time (K3, K7: `torch.linalg.cholesky_ex`, and
+     `torch.linalg.cholesky` beside it per call, which synchronizes with
+     the host);
   3. drives each ported path's closed loop (PATHS: the nominal NMPC, the
      SNMPC, the R2NMPC and WMPC over the R2NMPC): `build_simulation` on
      cuda in float32 with `batched_scenarios` at B = 128, a settle run and
      a timed run, with the launch counters reset just before and read just
      after; checks that the path's kernels (and no other) were launched,
      solver health and finite logs; prints solves/s and |lat_dev| p50/p99
-     (WMPC: the weight switches and the action histogram); takes a short
-     torch.profiler window of the same loop;
-  4. after all loops, reruns each path's first steps on the CPU (plain
-     versions) in float64 (nominal and SNMPC: also in float32) from the
-     card's own carry at that step and holds the card's inputs simU to each
-     (WMPC: and its actions to the float64 run's);
-  5. prints the seconds each phase took, one {"kernels": [...]} line
+     (WMPC: the weight switches and the action histogram);
+  4. after all loops (a profiler session slows every later step's host
+     time), a short torch.profiler window of each loop, and the profiler's
+     device time of each kernel case of phase 2 and its library call
+     (`profiled_ms`; the `library_ms` of a library call that synchronizes
+     with the host, so that `ms` and `library_ms` are both device time);
+  5. reruns each path's first steps on the CPU (plain versions) in float64
+     and in float32 from the card's own carry at that step and holds the
+     card's inputs simU to each (WMPC: and its actions to the float64
+     run's);
+  6. prints the seconds each phase took, one {"kernels": [...]} line
      (launches per path; K7 and K8, which no path launches, with 0 and
      "path": null) and, last, the device line.
+
+    python3 chip_smoke.py --kernels-only   # phases 1, 2 and the kernels' profiles
+
+which prints the kernels' times as {"kernel_times": [...]}, without launch
+counts: no path runs, so no counter is read.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
 """
+import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -49,6 +66,8 @@ OUT_DIR = os.path.join(REPO, "build", "chip_smoke")
 # H100 SXM data sheet: HBM bandwidth, float32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+# back-to-back calls per device-time measurement
+LAUNCHES_TIMED = 100
 
 B, N, NX, NU = 128, 38, 8, 2
 NZ, NCG = N * NU, (N + 1) * 2   # 76 condensed controls, 78 general rows (nh=1 + delta_f per node)
@@ -85,16 +104,24 @@ OFF_PATH = {"condense_mxu", "cholesky_unblocked", "chol_solve_unblocked"}
 TOL = {"linearize": 2e-5, "condense": 2e-5, "condense_from": 2e-5, "cholesky": 2e-5,
        "chol_solve": 2e-5, "ipm_iteration": 1e-4, "condense_mxu": 2e-5,
        "cholesky_unblocked": 2e-5, "chol_solve_unblocked": 2e-5}
+# K3 and K7 on an ill-conditioned H (cond ~1e7-1e8): max |L L^T - H| / max |H|,
+# against n eps ~4.5e-6 at n = 76
+BACKWARD_TOL = 2e-5
 # the card's applied inputs simU against the CPU's float32 and float64 step
 # from the same carry: max |card - cpu| <= TOL_U * max |simU f64| per input.
 # One float32 step lies within 3e-4 (nominal) and 2e-4 (SNMPC) of the
 # float64 step on this scale
 TOL_U = {"nominal": 2e-3, "snmpc": 2e-3, "rnmpc": 2e-3, "wmpc_rnmpc": 2e-3}
-# paths whose CPU re-solve runs in float32 beside float64, so that the card's
-# step is also held to the CPU's in its own precision. R2NMPC and WMPC run the
-# nominal engine under QPMods and are held to float64 alone, which halves
-# their share of the script's CPU time
-F32_RESOLVE = ("nominal", "snmpc")
+# A (scenario, step) where the CPU's own float32 step lies beyond TOL_U of its
+# float64 step is a state float32 cannot resolve: a soft row within one float32
+# ulp of its bound lands on the other side, the polish's semismooth Newton step
+# takes another active set, and simU moves by more than TOL_U (seen once on
+# the nominal path, 2.5e-3 of max |simU| at one of 2,560 pairs, where the
+# card's step lay with the CPU's float32 step). There the card is held to the
+# float32 step alone, and no looser than it is held to float64 elsewhere: its
+# distance from the float32 step there may not exceed the path's largest
+# card - cpu f64 over the other pairs. At most MAX_F32_FLIPS such pairs per path
+MAX_F32_FLIPS = 2
 CARRY = ("w", "Gw", "su", "sl", "pu", "pl", "lam_u", "lam_l", "mu_u", "mu_l")
 REPLACES = {
     "linearize": "tum_control_tpu/ops/pallas_kernels/linearize.py:41",
@@ -107,6 +134,9 @@ REPLACES = {
     "cholesky_unblocked": "tum_control_tpu/ops/pallas_kernels/chol.py:33",
     "chol_solve_unblocked": "tum_control_tpu/ops/pallas_kernels/chol.py:58",
 }
+# the csrc kernels' symbols, as the profiler names them
+HAND_KERNEL = re.compile(r"\b(linearize_kernel|condense_kernel|condense_aug_kernel|"
+                         r"chol_factor_kernel|chol_solve_kernel|ipm_iter_kernel)\b")
 SOURCE = {
     "linearize": "tum_control_tpu_torch/csrc/linearize.cu",
     "condense": "tum_control_tpu_torch/csrc/condense.cu",
@@ -129,8 +159,11 @@ def say(*a):
     print(*a, flush=True)
 
 
-def time_cuda(fn, runs, warmup=2):
-    """Median milliseconds of `fn` between CUDA events, after warm-up."""
+def launch_ms(fn, runs, warmup=2):
+    """Median milliseconds of one call of `fn` between two CUDA events, after
+    warm-up. The device is idle when the start event is recorded, so the
+    figure includes the host's launch path (Python, the wrapper's checks and
+    allocation, ctypes) as well as the device time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -144,6 +177,71 @@ def time_cuda(fn, runs, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+@functools.lru_cache(maxsize=None)
+def sleep_cycles_per_ms():
+    """Clock cycles of `torch.cuda._sleep` per millisecond on this card."""
+    torch.cuda._sleep(1000)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(20_000_000)
+    end.record()
+    end.synchronize()
+    return 20_000_000 / start.elapsed_time(end)
+
+
+def device_ms(fn, launches=LAUNCHES_TIMED):
+    """Mean device milliseconds per call of `fn`: `launches` back-to-back
+    calls between one pair of CUDA events, queued behind a
+    `torch.cuda._sleep` that lasts twice the host's time to enqueue them, so
+    the device reaches the start event only when every call is queued and
+    the host's launch path stays out of the figure. None when the host
+    could not get ahead of the device (a call that synchronizes with the
+    host, as `torch.linalg.cholesky` does on CUDA)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(launches):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    cycles = int(sleep_cycles_per_ms() * (2.0 * host_ms + 1.0))
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        ahead = not start.query()
+        end.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / launches
+        cycles *= 4
+    return None
+
+
+def _device_us(r):
+    """Device microseconds of one `key_averages()` row."""
+    return getattr(r, "self_device_time_total", 0.0) or getattr(r, "self_cuda_time_total", 0.0)
+
+
+def profiled_ms(fn, launches=LAUNCHES_TIMED):
+    """Device milliseconds per call of `fn` by torch.profiler: the sum of
+    the device time of every kernel the calls launched, over `launches`
+    back-to-back calls. None when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_device_us(r) for r in prof.key_averages() if str(r.device_type).endswith("CUDA"))
+    return us / launches / 1e3 if us > 0 else None
 
 
 def bound(n_bytes, n_ops):
@@ -201,6 +299,32 @@ def random_qp(rng, device):
     return tuple(t(a) for a in (H0, g0, G, c0, lb, ub, z1, z2))
 
 
+def ipm_shaped_h(rng, batch, nz, ncg):
+    """(batch, nz, nz) float32 normal matrices H0 + G^T diag(sigma) G +
+    diag(sigma_box) as an interior-point iteration builds them late in a
+    solve: H0 and G drawn as random_qp draws them, sigma ~ |N(0, 1)| + 0.1
+    on the soft rows and log-uniform over 1e-4 .. 10^6.5 on the hard rows
+    (every 6th row from row 2, as random_qp marks them). At nz = 76, 78
+    general rows: cond(H) median ~1e7-2e7, max ~1e8. With sigma up to 1e7
+    (cond up to ~5e8) the float32 plain version itself breaks down (a
+    negative pivot) in about one matrix of 128."""
+    nc = ncg + nz
+    G = rng.standard_normal((batch, ncg, nz))
+    A = rng.standard_normal((batch, nz, nz + 4))
+    H0 = np.einsum("bij,bkj->bik", A, A) / nz + 2.0 * np.eye(nz)
+    sig = np.abs(rng.standard_normal((batch, nc))) + 0.1
+    sig[:, 2::6] = 10.0 ** rng.uniform(-4.0, 6.5, sig[:, 2::6].shape)
+    H = H0 + np.einsum("bic,bi,bid->bcd", G, sig[:, :ncg], G) + sig[:, ncg:, None] * np.eye(nz)
+    return (0.5 * (H + H.transpose(0, 2, 1))).astype(np.float32)
+
+
+def backward_error(L, H):
+    """max over the batch of max |L L^T - H| / max |H|, in float64."""
+    Ld, Hd = L.double(), H.double()
+    err = (Ld @ Ld.transpose(1, 2) - Hd).abs().amax(dim=(1, 2)) / Hd.abs().amax(dim=(1, 2))
+    return float(err.max())
+
+
 def kernel_phase(dev):
     from tum_control_tpu_torch.api import build_controller
     from tum_control_tpu_torch.config import MPCConfig, SimConfig
@@ -220,24 +344,56 @@ def kernel_phase(dev):
     from tum_control_tpu_torch.track.trajectory import load_ref_trajectory
 
     rng = np.random.default_rng(0)
-    results = {}
+    results, jobs = {}, []
 
-    def record(name, err_rel, ms, plain_ms, bytes_, ops, library_ms=None, case="nominal"):
-        """One shape case of a kernel; a kernel's top-level numbers are those
-        of its first case, every case is listed under "cases"."""
+    def record(name, err_rel, kernel, plain, bytes_, ops, library=None, library_sync=None,
+               case="nominal", plain_runs=5, extra=None):
+        """Times one shape case of a kernel and records it; a kernel's
+        top-level numbers are those of its first case, every case is listed
+        under "cases". `ms` is the kernel's device time (`device_ms`),
+        `ms_launch` one launch with the host's launch path; the plain version
+        is timed per call, host included (it is hundreds of small launches).
+        `library_ms` is the library call's device time as the kernel's `ms`
+        is taken; where the call synchronizes with the host, so that no
+        launches queue up, it is the profiler's device time, filled in by
+        `profile_kernels`, and the per-call time with the host's path goes
+        to `library_call_ms`. `library_sync` (a call known to synchronize)
+        is timed per call, host included (`library_sync_call_ms`). The
+        profiler's times (`ms_profiler`, `library_ms_profiler`) come later,
+        from `profile_kernels` over `jobs`."""
         err, rel = err_rel
+        ms = device_ms(kernel)
+        check(ms is not None, f"{name}/{case}: the host could not queue the launches ahead")
+        ms_launch = launch_ms(kernel, 50)
+        plain_ms = launch_ms(plain, plain_runs, warmup=1)
+        library_ms = None
         b_ms, b_by = bound(bytes_, ops)
+        lib = "null"
+        if library is not None:
+            library_ms = device_ms(library)
+            syncs = library_ms is None
+            lib = f"{library_ms:.5f} ms device" if not syncs else "device time from the profiler"
         entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=library_ms, max_rel_err=rel)
+                     library_ms=library_ms, ms_profiler=None, ms_launch=ms_launch,
+                     max_rel_err=rel, **(extra or {}))
+        if library is not None:
+            entry.update(library_synchronizes=syncs, library_ms_profiler=None)
+            if syncs:
+                entry["library_call_ms"] = launch_ms(library, 50)
+                lib += f" (it synchronizes; {entry['library_call_ms']:.4f} ms per call)"
+        if library_sync is not None:
+            entry["library_sync_call_ms"] = launch_ms(library_sync, 50)
+            lib += f", synchronizing call {entry['library_sync_call_ms']:.4f} ms per call"
         if name not in results:
             results[name] = dict(name=name, route="cuda", source=SOURCE[name],
-                                 replaces=REPLACES[name], launches=0, **entry, cases=[])
+                                 replaces=REPLACES[name], **entry, cases=[])
         results[name]["cases"].append(dict(case=case, **entry))
-        lib = "null" if library_ms is None else f"{library_ms:.4f}"
+        jobs.append((name, len(results[name]["cases"]) - 1, kernel, library))
         worst = max(rel, key=rel.get)
         say(f"[{name}/{case}] max abs err {err:.3e}; worst output {worst}: {rel[worst]:.3e} of "
-            f"its max|plain| (tol {TOL[name]:.0e}) | kernel {ms:.4f} ms"
-            f" | plain {plain_ms:.3f} ms | library {lib} ms | bound {b_ms:.5f} ms ({b_by})")
+            f"its max|plain| | kernel {ms:.5f} ms device (mean of {LAUNCHES_TIMED} behind a "
+            f"sleep; one launch with the host path {ms_launch:.4f})"
+            f" | plain {plain_ms:.3f} ms | library {lib} | bound {b_ms:.5f} ms ({b_by})")
 
     # K1: linearize at curvature-consistent states spread along the lap
     ctrl = build_controller(MPCConfig(), SimConfig(), device=dev)
@@ -257,9 +413,8 @@ def kernel_phase(dev):
     # operations, and the 10 input directions' tangents at ~2 operations
     # per primitive each
     ops = B * N * 12 * 112 * (1 + 2 * 10)
-    record("linearize", err, time_cuda(lambda: linearize_cuda(XU, lr.prm, lr.n_sub), 50),
-           time_cuda(lambda: linearize_ref(XU, lr.step, NX), 3, warmup=1),
-           nbytes(XU, F, J), ops)
+    record("linearize", err, lambda: linearize_cuda(XU, lr.prm, lr.n_sub),
+           lambda: linearize_ref(XU, lr.step, NX), nbytes(XU, F, J), ops, plain_runs=3)
 
     # K2: condense the sensitivities K1 just produced
     A_ = J[..., :NX].contiguous()
@@ -271,8 +426,8 @@ def kernel_phase(dev):
     err = compare("condense", [("e", e, ep), ("Gamma", Gam, Gamp)])
     # A_k Gam_k needs nx^2 (k nu) FMAs (columns past k nu are zero), e: nx^2
     ops = B * sum(2 * NX * NX * (k * NU + 1) + 2 * NX * NU for k in range(N))
-    record("condense", err, time_cuda(lambda: condense_cuda(A_, B_, xi, d0), 50),
-           time_cuda(lambda: condense_ref(A_, B_, xi, d0), 5), nbytes(A_, B_, xi, d0, e, Gam), ops)
+    record("condense", err, lambda: condense_cuda(A_, B_, xi, d0),
+           lambda: condense_ref(A_, B_, xi, d0), nbytes(A_, B_, xi, d0, e, Gam), ops)
 
     # K8 on the same inputs: one augmented (B, N+1, nx, nz+1) output, held
     # per output (e, Gamma); the same active-triangle operation count
@@ -282,11 +437,11 @@ def kernel_phase(dev):
     say(f"[condense_mxu] against K2 on the same inputs: max |e8 - e2| "
         f"{float((e8 - e).abs().max()):.3e}, "
         f"max |Gamma8 - Gamma2| {float((G8 - Gam).abs().max()):.3e}")
-    record("condense_mxu", err, time_cuda(lambda: condense_mxu_cuda(A_, B_, xi, d0), 50),
-           time_cuda(lambda: condense_mxu_ref(A_, B_, xi, d0), 5),
+    record("condense_mxu", err, lambda: condense_mxu_cuda(A_, B_, xi, d0),
+           lambda: condense_mxu_ref(A_, B_, xi, d0),
            nbytes(A_, B_, xi, d0) + B * (N + 1) * NX * (NZ + 1) * 4, ops)
     say(f"[condense_mxu] K2 again in the same place: "
-        f"{time_cuda(lambda: condense_cuda(A_, B_, xi, d0), 50):.4f} ms")
+        f"{device_ms(lambda: condense_cuda(A_, B_, xi, d0)):.5f} ms device")
 
     # K1 at SNMPC's shapes: one RK4 substep; the head rows are every copy of
     # the fanned state at the 5 head stages, the tail rows the nominal copy
@@ -306,9 +461,9 @@ def kernel_phase(dev):
     err = compare("linearize", [("F", Fs, Fsp)] + [(f"J[..., {c}]", Js[..., c], Jsp[..., c])
                                                    for c in range(NX + NU)])
     # one substep: 4 model evaluations per element instead of 12
-    record("linearize", err, time_cuda(lambda: linearize_cuda(XUs, slr.prm, slr.n_sub), 50),
-           time_cuda(lambda: linearize_ref(XUs, slr.step, NX), 3, warmup=1),
-           nbytes(XUs, Fs, Js), B * XUs.shape[1] * 4 * 112 * (1 + 2 * 10), case="snmpc")
+    record("linearize", err, lambda: linearize_cuda(XUs, slr.prm, slr.n_sub),
+           lambda: linearize_ref(XUs, slr.step, NX), nbytes(XUs, Fs, Js),
+           B * XUs.shape[1] * 4 * 112 * (1 + 2 * 10), case="snmpc", plain_runs=3)
 
     # K6: SNMPC's nominal tail from a head carry, on the tail rows' K1
     # sensitivities; Gamma0 is nonzero in its first COL0 columns, as the
@@ -326,9 +481,9 @@ def kernel_phase(dev):
     err = compare("condense_from", [("e", e6, e6p), ("Gamma", G6, G6p)])
     # A_t Gam_t over the columns this carry fills (COL0 + t nu), e, and B
     ops = B * sum(2 * NX * NX * (COL0 + t * NU + 1) + 2 * NX * NU for t in range(N2))
-    record("condense_from", err, time_cuda(lambda: condense_from_cuda(*args6), 50),
-           time_cuda(lambda: condense_from_ref(*args6), 5),
-           nbytes(At, Bt, xit, e0, G0, e6, G6), ops, case="snmpc")
+    record("condense_from", err, lambda: condense_from_cuda(*args6),
+           lambda: condense_from_ref(*args6), nbytes(At, Bt, xit, e0, G0, e6, G6), ops,
+           case="snmpc")
 
     # K3, K5, K4 on one random QP's first IPM iteration
     H0, g0, G, c0, lb, ub, z1, z2 = random_qp(rng, dev)
@@ -345,37 +500,57 @@ def kernel_phase(dev):
     H = (H0 + torch.matmul(G.transpose(1, 2) * sig[:, None, :NCG], G)
          + torch.diag_embed(sig[:, NCG:] + 1e-11)).contiguous()
 
-    # bytes: the lower triangle of H read, the whole L written (its strict
-    # upper triangle is 0); the solve reads L's lower triangle and b, writes x
-    L = cholesky_cuda(H)
-    Lp = cholesky_ref(H)
-    err = compare("cholesky", [("L", L, Lp)])
+    # K3 and K7 on the QP's H, each against its plain version; bytes: the
+    # lower triangle of H read, the whole L written (its strict upper
+    # triangle is 0). torch.linalg.cholesky_ex is the library yardstick;
+    # torch.linalg.cholesky, which synchronizes with the host on CUDA, is
+    # timed beside it per call
     ops = B * (NZ ** 3 / 3 + NZ ** 2)
-    record("cholesky", err, time_cuda(lambda: cholesky_cuda(H), 50),
-           time_cuda(lambda: cholesky_ref(H), 5), tri_bytes(NZ) + nbytes(L), ops,
-           library_ms=time_cuda(lambda: torch.linalg.cholesky(H), 50))
+    chol = {"cholesky": (cholesky_cuda, cholesky_ref),
+            "cholesky_unblocked": (cholesky_unblocked_cuda, cholesky_unblocked_ref)}
+    factor = {}
+    for name, (kern, plain) in chol.items():
+        factor[name] = Lk = kern(H)
+        err = compare(name, [("L", Lk, plain(H))])
+        check(int(torch.count_nonzero(torch.triu(Lk, 1))) == 0, f"{name}: nonzero upper triangle")
+        record(name, err, functools.partial(kern, H), functools.partial(plain, H),
+               tri_bytes(NZ) + nbytes(Lk), ops,
+               library=functools.partial(torch.linalg.cholesky_ex, H),
+               library_sync=functools.partial(torch.linalg.cholesky, H))
 
+    # K5 and the K7 solve on their factors; the solve reads L's lower
+    # triangle and b, writes x
     b = torch.tensor(rng.standard_normal((B, NZ)), dtype=torch.float32, device=dev)
-    x = chol_solve_cuda(L, b)
-    xp = chol_solve_ref(L, b)
-    err = compare("chol_solve", [("x", x, xp)])
-    record("chol_solve", err, time_cuda(lambda: chol_solve_cuda(L, b), 50),
-           time_cuda(lambda: chol_solve_ref(L, b), 5), tri_bytes(NZ) + nbytes(b, x),
-           B * 2 * NZ * NZ,
-           library_ms=time_cuda(lambda: torch.cholesky_solve(b[..., None], L), 50))
+    solve = {"chol_solve": (chol_solve_cuda, chol_solve_ref, factor["cholesky"]),
+             "chol_solve_unblocked": (chol_solve_unblocked_cuda, chol_solve_unblocked_ref,
+                                      factor["cholesky_unblocked"])}
+    for name, (kern, plain, Lk) in solve.items():
+        x = kern(Lk, b)
+        err = compare(name, [("x", x, plain(Lk, b))])
+        record(name, err, functools.partial(kern, Lk, b), functools.partial(plain, Lk, b),
+               tri_bytes(NZ) + nbytes(b, x), B * 2 * NZ * NZ,
+               library=functools.partial(torch.cholesky_solve, b[..., None], Lk))
+    L = factor["cholesky"]
 
-    # K7 on K3's and K5's inputs, n = 76 unpadded, the bytes counted as theirs
-    L7 = cholesky_unblocked_cuda(H)
-    err = compare("cholesky_unblocked", [("L", L7, cholesky_unblocked_ref(H))])
-    record("cholesky_unblocked", err, time_cuda(lambda: cholesky_unblocked_cuda(H), 50),
-           time_cuda(lambda: cholesky_unblocked_ref(H), 5), tri_bytes(NZ) + nbytes(L7), ops,
-           library_ms=time_cuda(lambda: torch.linalg.cholesky(H), 50))
-    x7 = chol_solve_unblocked_cuda(L7, b)
-    err = compare("chol_solve_unblocked", [("x", x7, chol_solve_unblocked_ref(L7, b))])
-    record("chol_solve_unblocked", err, time_cuda(lambda: chol_solve_unblocked_cuda(L7, b), 50),
-           time_cuda(lambda: chol_solve_unblocked_ref(L7, b), 5), tri_bytes(NZ) + nbytes(b, x7),
-           B * 2 * NZ * NZ,
-           library_ms=time_cuda(lambda: torch.cholesky_solve(b[..., None], L7), 50))
+    # K3 and K7 on an ill-conditioned IPM-shaped H (cond up to ~1e8), where
+    # two float32 orders of one factorization part by more than TOL: held by
+    # backward error, to BACKWARD_TOL and to twice the plain version's own
+    Hill = torch.tensor(ipm_shaped_h(rng, B, NZ, NCG), device=dev)
+    for name, (kern, plain) in chol.items():
+        Lk, Lp = kern(Hill), plain(Hill)
+        check(bool(torch.isfinite(Lk).all()) and bool(torch.isfinite(Lp).all()),
+              f"{name}/ill_conditioned: non-finite factor")
+        check(int(torch.count_nonzero(torch.triu(Lk, 1))) == 0, f"{name}: nonzero upper triangle")
+        be, be_plain = backward_error(Lk, Hill), backward_error(Lp, Hill)
+        say(f"[{name}/ill_conditioned] max |L L^T - H| / max |H| {be:.3e}, plain version's "
+            f"{be_plain:.3e} (tol {BACKWARD_TOL:.0e} and 2x the plain version's)")
+        check(be <= BACKWARD_TOL and be <= 2.0 * be_plain,
+              f"{name}/ill_conditioned: backward error {be:.3e} beyond the bound")
+        e = float((Lk.double() - Lp.double()).abs().max())
+        record(name, (e, {"L": e / float(Lp.abs().max())}), functools.partial(kern, Hill),
+               functools.partial(plain, Hill), tri_bytes(NZ) + nbytes(Lk), ops,
+               library=functools.partial(torch.linalg.cholesky_ex, Hill), case="ill_conditioned",
+               extra=dict(backward_err=be, plain_backward_err=be_plain))
 
     lam_d = lam_u - lam_l
     rw = (torch.matmul(H0, carry[0][..., None])[..., 0] + g0
@@ -388,10 +563,33 @@ def kernel_phase(dev):
     # two directions of con_tmul + fwd/bwd substitution + con_mul, plus ~60
     # elementwise operations per constraint row; of L only its lower triangle
     ops = B * (2 * (4 * NCG * NZ + 2 * NZ * NZ) + 60 * NC)
-    record("ipm_iteration", err, time_cuda(lambda: fused_iteration_cuda(*args, carry), 50),
-           time_cuda(lambda: iteration_ref(*args, carry), 5),
+    record("ipm_iteration", err, lambda: fused_iteration_cuda(*args, carry),
+           lambda: iteration_ref(*args, carry),
            tri_bytes(NZ) + nbytes(*args[1:], *carry, *kc, ksig, kunc), ops)
-    return results
+    return results, jobs
+
+
+def profile_kernels(results, jobs):
+    """The profiler's device time per launch of each timed kernel case and
+    its library call, over LAUNCHES_TIMED launches; it is the `library_ms`
+    of a library call that synchronizes with the host. Run after the timed
+    loops: a profiler session slows the host's launches for the rest of the
+    process (on the H100 the nominal step took 73 ms after the kernel
+    phase's profiler sessions, 43 ms with none before it)."""
+    for name, i, kernel, library in jobs:
+        case = results[name]["cases"][i]
+        prof = {"ms_profiler": profiled_ms(kernel)}
+        if library is not None:
+            prof["library_ms_profiler"] = profiled_ms(library)
+            if case["library_synchronizes"]:
+                prof["library_ms"] = prof["library_ms_profiler"]
+        case.update(prof)
+        if i == 0:
+            results[name].update(prof)
+        fmt = lambda v: "not measured" if v is None else f"{v:.5f} ms"
+        say(f"[{name}/{case['case']}] profiler: kernel {fmt(prof['ms_profiler'])} per launch "
+            f"(events {case['ms']:.5f} ms)" + (f", library {fmt(prof['library_ms_profiler'])}"
+                                               if library is not None else ""))
 
 
 def move_carry(carry, device, dtype):
@@ -419,30 +617,33 @@ def profile_window(sim, carry, step_s, tag):
         sim.run_from(carry, n_prof)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-    dev_time = lambda r: getattr(r, "self_device_time_total", 0.0) or getattr(
-        r, "self_cuda_time_total", 0.0)
     kernels = [r for r in prof.key_averages() if str(r.device_type).endswith("CUDA")]
-    dev_us = sum(dev_time(r) for r in kernels)
+    dev_us = sum(_device_us(r) for r in kernels)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, f"chip_smoke_profile_{tag}.txt"), "w") as fh:
-        fh.write("\n".join(f"{dev_time(r):12.1f} us {r.count:7d}  {r.key}"
-                           for r in sorted(kernels, key=lambda r: -dev_time(r))))
+        fh.write("\n".join(f"{_device_us(r):12.1f} us {r.count:7d}  {r.key}"
+                           for r in sorted(kernels, key=lambda r: -_device_us(r))))
     wall_us, step_us = (t1 - t0) * 1e6, step_s * 1e6
     if dev_us > 0:
         say(f"[profile/{tag}] {n_prof} traced steps: {sum(r.count for r in kernels) / n_prof:.0f} "
             f"kernels/step, device busy {dev_us / n_prof:.1f} us/step; traced wall "
             f"{wall_us / n_prof:.1f} us/step, untraced {step_us:.1f} us/step -> device idle "
             f"share {1 - dev_us / n_prof / step_us:.4f} of the untraced step")
-        for r in sorted(kernels, key=lambda r: -dev_time(r))[:10]:
-            say(f"[profile/{tag}]   {dev_time(r) / n_prof:9.1f} us/step {r.count / n_prof:7.1f}"
+        for r in sorted(kernels, key=lambda r: -_device_us(r))[:10]:
+            say(f"[profile/{tag}]   {_device_us(r) / n_prof:9.1f} us/step {r.count / n_prof:7.1f}"
                 f" launches/step  {r.key[:80]}")
+        hand = [r for r in kernels if HAND_KERNEL.search(r.key)]
+        say(f"[profile/{tag}] hand-written kernels: " + "; ".join(
+            f"{HAND_KERNEL.search(r.key).group(1)} {_device_us(r) / n_prof:.1f} us/step in "
+            f"{r.count / n_prof:.1f} launches" for r in sorted(hand, key=lambda r: -_device_us(r))))
     else:
         say(f"[profile/{tag}] no device time in the trace: device busy share not measured")
 
 
 def loop_phase(dev, path):
     """Drives one controller's closed loop on the card; the launch counters
-    are reset just before the settle run and read just after the timed run."""
+    are reset just before the settle run and read just after the timed run.
+    Returns what the profile window and the CPU re-solve need."""
     from tum_control_tpu_torch.api import build_simulation
     from tum_control_tpu_torch.config import MPCConfig, SimConfig
     from tum_control_tpu_torch.ops.kernels import build
@@ -495,15 +696,18 @@ def loop_phase(dev, path):
             f"action histogram over (scenario, step) {hist.tolist()}")
     else:
         check(bool((act == -1).all()), f"{path}: actions logged without WMPC")
-    profile_window(sim, carry, (t2 - t1) / steps, path)
-    return launches, sim, carry0, log_settle
+    return dict(launches=launches, sim=sim, carry0=carry0, log_settle=log_settle, carry=carry,
+                step_s=(t2 - t1) / steps)
 
 
 def cpu_phase(path, sim, carry0, log_settle):
     """Each of the path's first CPU steps of the card's run again on the
-    CPU, where the port takes its plain versions, in float64 (and, on the
-    F32_RESOLVE paths, float32) from the card's own carry at that step: the
-    card's simU is held to each within TOL_U, in every scenario and step.
+    CPU, where the port takes its plain versions, in float32 and float64
+    from the card's own carry at that step: the
+    card's simU is held to each within TOL_U, in every scenario and step,
+    except that where the CPU's float32 step itself lies beyond TOL_U of
+    its float64 step (a float32 flip), the card is held to the float32
+    step alone, within the largest card - cpu f64 of the other pairs.
 
     A free run from the same initial states is no such yardstick: within 20
     steps a few scenarios of two float32 runs drift apart by O(1) in jerk
@@ -515,7 +719,7 @@ def cpu_phase(path, sim, carry0, log_settle):
     wmpc = PATH_CONFIG[path].get("enable_WMPC", False)
     t0 = time.perf_counter()
     f32, f64 = torch.float32, torch.float64
-    dts = (f32, f64) if path in F32_RESOLVE else (f64,)
+    dts = (f32, f64)
     cpu = {dt: build_simulation(SimConfig(sim_mode=0), MPCConfig(**PATH_CONFIG[path]),
                                 device="cpu", dtype=dt)[0] for dt in dts}
     carry = move_carry(carry0, log_settle.simU.device, f32)
@@ -551,16 +755,33 @@ def cpu_phase(path, sim, carry0, log_settle):
     scale = U[f64].abs().amax(dim=(0, 1))
     say(f"[cpu/{path}] {n} steps x {B} scenarios, each from the card's carry, on the CPU "
         f"in {time.perf_counter() - t0:.1f} s; max |simU f64| per input {scale.tolist()}")
-    pairs = [("card - cpu f64", "card", f64)]
-    if f32 in U:
-        pairs += [("card - cpu f32", "card", f32), ("cpu f32 - cpu f64", f32, f64)]
+    pairs = [("card - cpu f64", "card", f64), ("card - cpu f32", "card", f32),
+             ("cpu f32 - cpu f64", f32, f64)]
+    flips = ((U[f32] - U[f64]).abs() > TOL_U[path] * scale).any(dim=2)
+    held = {}
     for label, a, b in pairs:
         d = (U[a] - U[b]).abs()
         worst = d.amax(dim=(0, 1))
         s, k = divmod(int(d.amax(dim=2).argmax()), n)
+        if b is f64:
+            d = d.masked_fill(flips[..., None], 0.0)
+        held[label] = d.amax(dim=(0, 1))
         say(f"[cpu/{path}] max |simU {label}| per input {worst.tolist()}, "
             f"{(worst / scale).tolist()} of max |simU| (tol {TOL_U[path]:.0e}; worst at "
-            f"scenario {s}, step {k})")
+            f"scenario {s}, step {k}); held {(held[label] / scale).tolist()}")
+    limit = float((held["card - cpu f64"] / scale).max())
+    for s, k in torch.nonzero(flips).tolist():
+        off = (U["card"][s, k] - U[f32][s, k]).abs() / scale
+        say(f"[cpu/{path}] float32 flip at scenario {s}, step {k}: cpu f32 - cpu f64 "
+            f"{((U[f32][s, k] - U[f64][s, k]).abs() / scale).tolist()} of max |simU|, "
+            f"card - cpu f32 {off.tolist()} (held to {limit:.3e}, the largest card - cpu f64 "
+            f"of the other pairs)")
+        check(float(off.max()) <= limit,
+              f"{path}: at the float32 flip ({s}, {k}) the card lies {float(off.max()):.3e} from "
+              f"the float32 step, beyond {limit:.3e}")
+    check(int(flips.sum()) <= MAX_F32_FLIPS,
+          f"{path}: {int(flips.sum())} float32 flips, more than {MAX_F32_FLIPS}")
+    for label, worst in held.items():
         check(bool((worst <= TOL_U[path] * scale).all()),
               f"{path}: max |simU {label}| beyond the tolerance")
 
@@ -594,30 +815,39 @@ def main():
         return now
 
     t = lap("start and build", t_start)
-    results = kernel_phase(dev)
+    results, jobs = kernel_phase(dev)
     t = lap("kernel phase", t)
-    # every loop before any CPU re-solve, so that no path's host clock runs
-    # beside the CPU work of an earlier one
+    if "--kernels-only" in sys.argv[1:]:
+        profile_kernels(results, jobs)
+        say(json.dumps({"kernel_times": list(results.values())}))
+        return 0
+    # every timed loop before any profiler session and any CPU re-solve, so
+    # that no path's host clock runs after either
     runs = {}
     for path in PATHS:
         runs[path] = loop_phase(dev, path)
         t = lap(f"loop/{path}", t)
-    for path, (_, sim, carry0, log_settle) in runs.items():
-        cpu_phase(path, sim, carry0, log_settle)
+    for path, run in runs.items():
+        profile_window(run["sim"], run["carry"], run["step_s"], path)
+    profile_kernels(results, jobs)
+    t = lap("profiles", t)
+    for path, run in runs.items():
+        cpu_phase(path, run["sim"], run["carry0"], run["log_settle"])
         t = lap(f"cpu/{path}", t)
     lap("whole script after the imports", t_start)
-    per_path = {path: run[0] for path, run in runs.items()}
+    per_path = {path: run["launches"] for path, run in runs.items()}
     check(set(results) == set(build.LAUNCHES), "kernel list and launch counters differ")
+    kernels = []
     for name in build.LAUNCHES:
         n = {path: per_path[path][name] for path in PATHS}
         if name in OFF_PATH:
             check(sum(n.values()) == 0, f"kernel {name} was launched on a path")
         else:
             check(sum(n.values()) > 0, f"kernel {name} was launched on no path")
-        results[name]["launches"] = sum(n.values())
-        results[name]["launches_per_path"] = n
-        results[name]["path"] = None if name in OFF_PATH else [p for p in PATHS if n[p] > 0]
-    say(json.dumps({"kernels": [results[k] for k in build.LAUNCHES]}))
+        head = {k: results[name].pop(k) for k in ("name", "route", "source", "replaces")}
+        kernels.append(dict(head, launches=sum(n.values()), **results[name], launches_per_path=n,
+                            path=None if name in OFF_PATH else [p for p in PATHS if n[p] > 0]))
+    say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

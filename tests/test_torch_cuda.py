@@ -6,22 +6,23 @@ K7 and K8, which no path launches, are held on their own inputs.
 
 Marked `cuda`; without a CUDA device every test skips. On a GPU machine:
 
-    python -m pytest -m cuda tests/test_torch_cuda.py
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: float32 on both sides in different operation orders, held for
-each output as max |kernel - plain| <= tol * max(1, max |plain|).
+each output as max |kernel - plain| <= tol * max(1, max |plain|); on an
+ill-conditioned H the factorizations are held by backward error instead.
 """
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import PATH_CONFIG
+from chip_smoke import BACKWARD_TOL, PATH_CONFIG, backward_error, ipm_shaped_h
 from tum_control_tpu_torch.api import build_controller, build_simulation
 from tum_control_tpu_torch.config import MPCConfig, SimConfig
 from tum_control_tpu_torch.ops.kernels import build
 from tum_control_tpu_torch.ops.kernels.chol import (
-    chol_solve, chol_solve_ref, chol_solve_unblocked, chol_solve_unblocked_ref, cholesky,
-    cholesky_ref, cholesky_unblocked, cholesky_unblocked_ref,
+    MAX_N_CHOL, chol_plan, chol_solve, chol_solve_ref, chol_solve_unblocked,
+    chol_solve_unblocked_ref, cholesky, cholesky_ref, cholesky_unblocked, cholesky_unblocked_ref,
 )
 from tum_control_tpu_torch.ops.kernels.condense import (
     condense, condense_from, condense_from_ref, condense_mxu, condense_mxu_ref, condense_ref,
@@ -51,7 +52,15 @@ def _spd(B, n, seed, dev):
     return torch.tensor(H, dtype=torch.float32, device=dev)
 
 
-@pytest.mark.parametrize("B,n", [(3, 12), (130, 76)])
+# K3 and K7 (one kernel body, csrc/chol.cu) over ragged and whole panels of 16
+# up to the limit n = 128, one matrix, a few, and 130 (about one wave on 132
+# SMs, not a multiple of 32)
+CHOL_SHAPES = [(B, n) for B in (1, 3, 130) for n in (1, 12, 15, 16, 17, 33, 76, 80, 128)]
+# kernel wrapper, plain version
+FACTORS = {"K3": (cholesky, cholesky_ref), "K7": (cholesky_unblocked, cholesky_unblocked_ref)}
+
+
+@pytest.mark.parametrize("B,n", CHOL_SHAPES)
 def test_cholesky_and_solve_kernels(dev, B, n):
     H = _spd(B, n, 1, dev)
     b = torch.randn(B, n, device=dev, generator=torch.Generator(dev).manual_seed(0))
@@ -109,7 +118,7 @@ def test_condense_from_kernel(dev, B, N2, nz, col0):
     assert torch.equal(G[:, 0], G0) and torch.equal(e[:, 0], e0)
 
 
-@pytest.mark.parametrize("B,n", [(3, 12), (128, 76)])
+@pytest.mark.parametrize("B,n", CHOL_SHAPES)
 def test_unblocked_cholesky_and_solve_kernels(dev, B, n):
     """K7 against its plain versions (the same pivot loops)."""
     H = _spd(B, n, 6, dev)
@@ -122,6 +131,49 @@ def test_unblocked_cholesky_and_solve_kernels(dev, B, n):
     _close(L, cholesky_unblocked_ref(H), 2e-5)
     _close(x, chol_solve_unblocked_ref(L, b), 2e-5)
     assert torch.count_nonzero(torch.triu(L, 1)) == 0
+
+
+@pytest.mark.parametrize("kernel", list(FACTORS))
+def test_cholesky_ill_conditioned_by_backward_error(dev, kernel):
+    """An IPM-shaped H of cond ~1e7-1e8, where two float32 orders of one
+    factorization part by more than 2e-5 of max |L| without either being
+    wrong: held by backward error, max |L L^T - H| / max |H| <= 2e-5 (n eps
+    ~4.5e-6 at n = 76) and at most twice the plain version's own."""
+    fn, ref = FACTORS[kernel]
+    H = torch.tensor(ipm_shaped_h(np.random.default_rng(8), 130, 76, 78), device=dev)
+    L, Lp = fn(H), ref(H)
+    assert torch.isfinite(L).all() and torch.isfinite(Lp).all()
+    assert torch.count_nonzero(torch.triu(L, 1)) == 0
+    be, be_plain = backward_error(L, H), backward_error(Lp, H)
+    assert be <= BACKWARD_TOL and be <= 2.0 * be_plain, (be, be_plain)
+
+
+@pytest.mark.parametrize("kernel", list(FACTORS))
+@pytest.mark.parametrize("n", [17, 76])
+def test_cholesky_non_spd_gives_non_finite_factor(dev, kernel, n):
+    """A matrix with a negative diagonal entry has a negative pivot: its
+    factor is non-finite, in exactly the matrices where the plain version's
+    is, and every other matrix of the batch keeps its finite factor."""
+    fn, ref = FACTORS[kernel]
+    H = _spd(130, n, 9, dev)
+    bad = torch.zeros(130, dtype=torch.bool, device=dev)
+    for k, j in ((0, 0), (7, n // 2), (64, n - 1), (129, 15 % n)):
+        H[k, j, j] = -1.0
+        bad[k] = True
+    L, Lp = fn(H), ref(H)
+    torch.cuda.synchronize()
+    assert torch.equal(~torch.isfinite(L).all(dim=(1, 2)), bad)
+    assert torch.equal(~torch.isfinite(Lp).all(dim=(1, 2)), bad)
+    _close(L[~bad], Lp[~bad], 2e-5)
+
+
+def test_cholesky_plan_matches_the_kernel(dev):
+    """csrc/chol.cu's shared-memory size at every n equals chol_plan's, and
+    both refuse n outside 1..MAX_N_CHOL."""
+    lib = build.library("chol")
+    for n in range(1, MAX_N_CHOL + 1):
+        assert lib.cholesky_smem_bytes(n) == chol_plan(n).smem_bytes, n
+    assert lib.cholesky_smem_bytes(0) == -1 and lib.cholesky_smem_bytes(MAX_N_CHOL + 1) == -1
 
 
 @pytest.mark.parametrize("B,N", [(3, 5), (128, 38)])

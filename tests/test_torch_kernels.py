@@ -13,6 +13,9 @@ the JAX package's references, on the CPU; and the wrappers' dispatch rule.
   K7 cholesky_unblocked_ref / chol_solve_unblocked_ref vs _chol_kernel /
                      _solve_kernel (a test-built interpret-mode pallas_call
                      in the lanes layout), jnp.linalg.cholesky and cho_solve
+  K3, K7 on an ill-conditioned IPM-shaped H (cond ~1e6-5e7) vs
+                     jnp.linalg.cholesky; chol_plan's layout, and the
+                     wrappers' refusals before any launch
 
 The CUDA kernels themselves run only on the card (tests/test_torch_cuda.py,
 chip_smoke.py), where they are held against these plain versions.
@@ -38,13 +41,15 @@ from tum_control_tpu.ops.pallas_kernels.condense import condense_scan_ref
 from tum_control_tpu_torch.api import build_controller
 from tum_control_tpu_torch.config import MPCConfig, SimConfig
 from tum_control_tpu_torch.ops.kernels import build
+from tum_control_tpu_torch.ops.kernels import chol as tchol
 from tum_control_tpu_torch.ops.kernels.chol import (
-    chol_solve, chol_solve_ref, chol_solve_unblocked, chol_solve_unblocked_ref, cholesky,
-    cholesky_ref, cholesky_unblocked, cholesky_unblocked_ref,
+    MAX_N_CHOL, CholPlan, chol_plan, chol_solve, chol_solve_ref, chol_solve_unblocked,
+    chol_solve_unblocked_ref, cholesky, cholesky_ref, cholesky_unblocked, cholesky_unblocked_ref,
 )
 from tum_control_tpu_torch.ops.kernels.condense import condense, condense_mxu, condense_mxu_ref
 from tum_control_tpu_torch.ops.kernels.ipm_iter import fused_iteration, masks_of, sigma_of
 
+from chip_smoke import ipm_shaped_h
 from test_ipm_fused import _init_carry, _random_problem
 
 T = lambda a: torch.tensor(np.asarray(a))
@@ -296,3 +301,83 @@ def test_k7_plain_matches_unblocked_kernels_interpret(n):
     np.testing.assert_allclose(L_t.numpy(), L_j, rtol=1e-11, atol=1e-12)
     x_j = np.asarray(jax.vmap(lambda L, r: jsl.cho_solve((L, True), r))(L_j, b))
     np.testing.assert_allclose(x_t.numpy(), x_j, rtol=1e-11, atol=1e-12)
+
+
+@pytest.mark.parametrize("plain", [cholesky_ref, cholesky_unblocked_ref], ids=["K3", "K7"])
+def test_k3_k7_plain_on_ill_conditioned_ipm_h(plain):
+    """float64, the IPM-shaped H that chip_smoke.py holds the card to (cond
+    ~1e6-5e7 here): each plain version against jnp.linalg.cholesky to 1e-10
+    of max |L| (observed <= 4e-13; cond eps ~5e-9 is the first-order bound
+    of a backward-stable factorization), upper triangle exactly 0."""
+    H = ipm_shaped_h(np.random.default_rng(20), 8, 76, 78).astype(np.float64)
+    L_j = np.asarray(jnp.linalg.cholesky(H))
+    L_t = plain(T(H))
+    np.testing.assert_allclose(L_t.numpy(), L_j, rtol=0, atol=1e-10 * np.abs(L_j).max())
+    assert torch.count_nonzero(torch.triu(L_t, 1)) == 0
+
+
+@pytest.mark.parametrize("n,plan", [
+    (1, CholPlan(16, 20, 1, 4 * (16 * 20 + 16))),
+    (17, CholPlan(32, 36, 2, 4 * (32 * 36 + 16))),
+    (76, CholPlan(80, 84, 5, 26944)),
+    (128, CholPlan(128, 132, 8, 67648)),
+])
+def test_k3_k7_plan(n, plan):
+    """The factorization kernel's layout: n padded to a multiple of 16,
+    ld = npad + 4 (= 4 mod 8), shared memory for the matrix and 16 pivots
+    (above the default 48 KB only at n > 96)."""
+    assert chol_plan(n) == plan
+    assert plan.ld % 8 == 4 and (plan.smem_bytes > 48 * 1024) == (n > 96)
+
+
+class _OnCard:
+    """Stands in for a CUDA tensor where there is none: the dispatch rule
+    and the wrappers' checks read only device, dtype, shape and
+    contiguity."""
+
+    def __init__(self, t):
+        self.t, self.device, self.dtype, self.shape = t, torch.device("cuda", 0), t.dtype, t.shape
+
+    def dim(self):
+        return self.t.dim()
+
+    def is_contiguous(self):
+        return self.t.is_contiguous()
+
+
+@pytest.mark.parametrize("factor", [cholesky, cholesky_unblocked], ids=["K3", "K7"])
+@pytest.mark.parametrize("case", ["n_in_range", "n_above_max", "n_zero", "non_contiguous",
+                                  "cpu_cuda_mix", "float64"])
+def test_k3_k7_wrappers_refuse_before_launch(monkeypatch, factor, case):
+    """On the card the wrappers take n in 1..MAX_N_CHOL and contiguous
+    float32 tensors that all lie on the card; anything else raises before
+    the kernel's library is loaded, and no launch is counted. Loading the
+    library stops the call here, which shows the launch was reached."""
+
+    class Launched(Exception):
+        pass
+
+    def library(name):
+        raise Launched(name)
+
+    monkeypatch.setattr(tchol.build, "library", library)
+    n = {"n_above_max": MAX_N_CHOL + 1, "n_zero": 0}.get(case, 76)
+    H = T(_spd(2, n, seed=21)).float() if n else torch.zeros(2, 0, 0)
+    build.reset_launches()
+    if case == "n_in_range":
+        with pytest.raises(Launched):
+            factor(_OnCard(H))
+    elif case == "non_contiguous":
+        with pytest.raises(ValueError):
+            factor(_OnCard(H.transpose(1, 2)))
+    elif case == "cpu_cuda_mix":
+        solve = chol_solve if factor is cholesky else chol_solve_unblocked
+        with pytest.raises(ValueError):
+            solve(_OnCard(H), torch.zeros(2, n))
+    elif case == "float64":
+        with pytest.raises(TypeError):
+            factor(_OnCard(H.double()))
+    else:
+        with pytest.raises(ValueError):
+            factor(_OnCard(H))
+    assert all(v == 0 for v in build.LAUNCHES.values())

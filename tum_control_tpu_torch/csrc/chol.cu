@@ -1,104 +1,279 @@
-// K3: batched Cholesky factorization, K5: the solve L L^T x = b, and K7:
-// the unblocked versions of both.
+// K3 and K7: batched Cholesky factorization, one kernel body for both; K5
+// and the K7 solve: L L^T x = b.
 //
-// K3 replaces ops/pallas_kernels/chol.py::_chol_kernel_blocked (launched by
-// _cholesky_tpu_packed and _cholesky_tpu); K5 replaces
-// chol.py::_solve_kernel_blocked (launched by _solve_tpu_packed and
-// _solve_tpu). The TPU kernels put 128 matrices in the lanes and run one
-// pivot loop over all of them; here one block owns one matrix.
+// chol_factor_kernel replaces ops/pallas_kernels/chol.py::_chol_kernel_blocked
+// (chol.py:90, launched by _cholesky_tpu_packed and _cholesky_tpu; here K3,
+// cholesky_f32) and chol.py::_chol_kernel (chol.py:33, the unblocked TPU
+// kernel that no pallas_call of the JAX package passes; here K7,
+// cholesky_unblocked_f32). The two compute one function with two pivot
+// arithmetics, selected by the template flag RSQRT:
+//   K3 (RSQRT = false): L_jj = sqrt(a_jj) and the column below is divided by
+//     it, the arithmetic of cholesky_ref (held to jnp.linalg.cholesky);
+//   K7 (RSQRT = true): the column from the diagonal down is multiplied by
+//     rsqrt(a_jj), so L_jj = a_jj rsqrt(a_jj), the arithmetic of
+//     cholesky_unblocked_ref and of both TPU kernels (chol.py:42, :108).
+// The TPU kernels put 128 matrices in the lanes and run one pivot loop over
+// all of them; here one block of CHOL_THREADS threads owns one matrix.
 //
-// K3 -- what bounds it: latency of the n sequential pivots, each followed by
-// a trailing update of (n-j)^2/2 entries; bytes (2 n^2 floats per matrix)
-// and FLOPs (n^3/3) are both small. Design: the matrix lives in shared
-// memory (n x (n+1) floats, 23 KB at n = 76; the odd leading dimension
-// keeps column accesses conflict-free), right-looking unblocked elimination
-// with two barriers per pivot, the trailing update spread over all threads.
-// Only the lower triangle of H is read; the strict upper triangle of L is 0.
+// What bounds it: neither bytes (H's lower triangle in, L out, ~46 KB per
+// matrix at n = 76) nor FLOPs (~n^3 / 6 FMAs) but latency: the chain of
+// ceil(n / NB) dependent panels, each a chain of NB dependent pivots, with
+// block barriers between the steps of a panel. The design keeps that chain
+// short and barrier-poor:
+//   * the matrix lives in shared memory, padded to npad = NB ceil(n / NB)
+//     with an identity tail (as _cholesky_tpu_packed pads it), so no inner
+//     loop masks a ragged edge; row-major with ld = npad + 4 (ld = 4 mod 8:
+//     8 lanes reading 16 bytes each from 8 consecutive rows hit 32 distinct
+//     banks). H's lower triangle arrives by cp.async, 16 bytes per lane,
+//     lanes over a row, when n % 4 == 0 and both pointers are 16-byte
+//     aligned (4 bytes per lane otherwise), all copies in flight at once;
+//   * per panel of NB = 16 columns: (1) warp 0 factors the 16 x 16 diagonal
+//     block in registers, one row per lane, shuffles only; (2) every thread
+//     solves one sub-diagonal row of the panel against it (the rows are
+//     independent); (3) the trailing lower trapezoid takes the rank-16
+//     update in 16 x 16 blocks, each lane accumulating a 4 x 2 register tile
+//     over the 16 panel columns before it subtracts (chol.py:119-134). Warp
+//     0 updates the next diagonal block first and factors it at once (step
+//     1 of the next panel), while warps 1.. update the other blocks. Tile
+//     coordinates are fixed per lane; no inner loop divides an index;
+//   * two block barriers per panel (after steps 2 and 3): 2 ceil(n / 16) in
+//     all, 10 at n = 76;
+//   * FP32 FMAs only: no tensor cores (the work is latency-bound, and the
+//     JAX package records ~2e-2 relative error from reduced-precision
+//     products);
+//   * a pivot that is not positive gives NaN (sqrt or rsqrt of a negative
+//     number, 0 / 0, 0 * inf), which flows into every later column of that
+//     matrix and of no other; no loop bound depends on the data.
+// Limits: 1 <= n <= CHOL_MAX_N = 128 (the solve's limit), CHOL_THREADS = 256,
+// shared memory (npad ld + NB) floats: 26,944 bytes at n = 76, 67,648 at
+// n = 128 (above the default 48 KB only for npad >= 112, opted in by a
+// cudaFuncSetAttribute per launch there and no host call below).
+// ops/kernels/chol.py::chol_plan computes the same
+// sizes and refuses n outside the range before any launch.
 //
-// K5 -- what bounds it: the 2n dependent substitution steps (latency). Design:
-// the block stages L in shared memory with coalesced loads, then one warp
-// runs the substitution with x in registers (trisolve.cuh, shared with K4).
-//
-// K7 replaces chol.py::_chol_kernel and chol.py::_solve_kernel, the
-// unblocked TPU kernels that no pallas_call of the JAX package passes. They
-// take n as it is (no pad to a multiple of 16) and keep the TPU kernels'
-// arithmetic: each pivot multiplies its column by rsqrt(a_jj) (so
-// L_jj = a_jj rsqrt(a_jj)), one rank-1 update of the trailing lower
-// triangle follows; the solve multiplies by 1 / L_jj (trisolve.cuh, RECIP).
-// RECIP is kept only to match the TPU kernel's arithmetic: x (1 / d) and x / d
-// differ by one rounding, which no tolerance of the repo can see (2e-5
-// relative on the card, 1e-12 in float64 on the CPU), so no test tells the
-// K7 solve from K5's kernel.
-// Bound, as K3 and K5, by the latency of the n sequential pivots. Design of
-// the factorization: one warp per matrix, lanes over rows, the matrix in
-// shared memory (ld = n + 1); per pivot the lanes scale their rows of
-// column j, then sweep the trailing columns k > j, lane l updating rows
-// k + l, k + l + 32, ... of column k. Warp barriers only, no block barrier.
+// K5 replaces chol.py::_solve_kernel_blocked (launched by _solve_tpu_packed
+// and _solve_tpu), the K7 solve chol.py::_solve_kernel. What bounds them: the
+// 2n dependent substitution steps (latency). Design: the block stages L in
+// shared memory with coalesced loads, then one warp runs the substitution
+// with x in registers (trisolve.cuh, shared with K4). The K7 solve multiplies
+// by 1 / L_jj (trisolve.cuh, RECIP), only to keep the TPU kernel's
+// arithmetic: x (1 / d) and x / d differ by one rounding, which no tolerance
+// of the repo can see (2e-5 relative on the card, 1e-12 in float64 on the
+// CPU), so no test tells the K7 solve from K5's kernel.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "common.cuh"
 #include "trisolve.cuh"
 
-constexpr int MAXR = 4;  // substitution rows per lane: n <= 128
+constexpr int MAXR = 4;            // substitution rows per lane: n <= 128
+constexpr int NB = 16;             // panel width
+constexpr int CHOL_THREADS = 256;
+constexpr int CHOL_WARPS = CHOL_THREADS / 32;
+constexpr int CHOL_MAX_N = 128;
+constexpr size_t SMEM_DEFAULT = 48 * 1024;
 
-__global__ void chol_kernel(const float* __restrict__ H, float* __restrict__ L, int n) {
-  extern __shared__ float a[];
-  const int ld = n + 1;
-  const int tid = threadIdx.x, bs = blockDim.x;
-  const float* Hb = H + (long)blockIdx.x * n * n;
-  float* Lb = L + (long)blockIdx.x * n * n;
-  for (int idx = tid; idx < n * n; idx += bs) {
-    const int i = idx / n, k = idx - i * n;
-    a[i * ld + k] = Hb[idx];
-  }
-  __syncthreads();
-  for (int j = 0; j < n; ++j) {
-    const float d = sqrtf(a[j * ld + j]);
-    for (int i = j + 1 + tid; i < n; i += bs) a[i * ld + j] = a[i * ld + j] / d;
-    __syncthreads();
-    if (tid == 0) a[j * ld + j] = d;
-    // trailing update of the lower triangle: a[i][k] -= l_ij l_kj, j < k <= i
-    const int m = n - j - 1;
-    for (int idx = tid; idx < m * m; idx += bs) {
-      const int r = idx / m, c = idx - r * m;
-      if (c <= r) {
-        const int i = j + 1 + r, k = j + 1 + c;
-        a[i * ld + k] -= a[i * ld + j] * a[k * ld + j];
-      }
-    }
-    __syncthreads();
-  }
-  for (int idx = tid; idx < n * n; idx += bs) {
-    const int i = idx / n, k = idx - i * n;
-    Lb[idx] = (k <= i) ? a[i * ld + k] : 0.0f;
+// the factorization's shared-memory layout (chol.py::chol_plan)
+__host__ __device__ inline int chol_npad(int n) { return (n + NB - 1) / NB * NB; }
+__host__ __device__ inline int chol_ld(int n) { return chol_npad(n) + 4; }
+static size_t chol_smem(int n) { return sizeof(float) * ((size_t)chol_npad(n) * chol_ld(n) + NB); }
+
+// a / b from y = 1 / b (correctly rounded) and one FMA correction of the
+// quotient (Markstein): within an ulp of a / b, and in nearly every case the
+// same float. K3's quotients go through it: the IEEE division `a / b`
+// compiles to a sequence with a slow-path branch on the pivot chain, while
+// one reciprocal per pivot, taken by every lane, and a multiply and two FMAs
+// per quotient schedule freely.
+__device__ __forceinline__ float div_rn(float a, float b, float y) {
+  const float q = a * y;
+  return fmaf(fmaf(-q, b, a), y, q);
+}
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
+
+// NB consecutive floats of shared memory (16-byte aligned) to registers and back
+__device__ __forceinline__ void load_row(const float* p, float (&r)[NB]) {
+#pragma unroll
+  for (int q = 0; q < NB / 4; ++q) {
+    const float4 v = reinterpret_cast<const float4*>(p)[q];
+    r[4 * q] = v.x;
+    r[4 * q + 1] = v.y;
+    r[4 * q + 2] = v.z;
+    r[4 * q + 3] = v.w;
   }
 }
 
-__global__ void chol_unblocked_kernel(const float* __restrict__ H, float* __restrict__ L, int n) {
-  extern __shared__ float a[];
-  const int ld = n + 1;
-  const int lane = threadIdx.x;   // one warp per block
-  const float* Hb = H + (long)blockIdx.x * n * n;
-  float* Lb = L + (long)blockIdx.x * n * n;
-  for (int idx = lane; idx < n * n; idx += 32) {
-    const int i = idx / n, k = idx - i * n;
-    if (k <= i) a[i * ld + k] = Hb[idx];
-  }
-  __syncwarp();
-  for (int j = 0; j < n; ++j) {
-    const float inv = rsqrtf(a[j * ld + j]);
-    __syncwarp();
-    for (int i = j + lane; i < n; i += 32) a[i * ld + j] *= inv;
-    __syncwarp();
-    for (int k = j + 1; k < n; ++k) {
-      const float lk = a[k * ld + j];
-      for (int i = k + lane; i < n; i += 32) a[i * ld + k] -= a[i * ld + j] * lk;
+__device__ __forceinline__ void store_row(float* p, const float (&r)[NB]) {
+#pragma unroll
+  for (int q = 0; q < NB / 4; ++q)
+    reinterpret_cast<float4*>(p)[q] =
+        make_float4(r[4 * q], r[4 * q + 1], r[4 * q + 2], r[4 * q + 3]);
+}
+
+// Step 1: warp 0 factors the diagonal block at (k0, k0) in place and leaves
+// each pivot's divisor (K3: L_jj) or multiplier (K7: rsqrt(a_jj)) in piv.
+// Lane l holds row k0 + (l & 15); lanes 16-31 repeat rows 0-15 so that every
+// shuffle is full-warp, and only lanes 0-15 write back. A lane reads only the
+// lower triangle of its row: entries right of the diagonal are never used.
+template <bool RSQRT>
+__device__ __forceinline__ void factor_diag(float* a, int ld, int k0, float* piv, int lane) {
+  const int row = lane & (NB - 1);
+  float* src = a + (k0 + row) * ld + k0;
+  float r[NB];
+  load_row(src, r);
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const float d = __shfl_sync(FULL_MASK, r[j], j);
+    if (RSQRT) {
+      const float s = rsqrtf(d);
+      if (row >= j) r[j] *= s;
+      if (lane == j) piv[j] = s;
+    } else {
+      const float s = sqrtf(d);
+      const float q = div_rn(r[j], s, 1.0f / s);
+      if (row > j) r[j] = q;
+      if (row == j) r[j] = s;
+      if (lane == j) piv[j] = s;
     }
-    __syncwarp();
+#pragma unroll
+    for (int k = j + 1; k < NB; ++k) {
+      const float lkj = __shfl_sync(FULL_MASK, r[j], k);
+      if (row >= k) r[k] -= r[j] * lkj;
+    }
   }
-  for (int idx = lane; idx < n * n; idx += 32) {
-    const int i = idx / n, k = idx - i * n;
-    Lb[idx] = (k <= i) ? a[i * ld + k] : 0.0f;
+  if (lane < NB) store_row(src, r);
+}
+
+// Step 2: the panel's rows below the diagonal block, one row per thread:
+// x L_dd^T = a, column by column in the order of the unblocked elimination.
+// K3's reciprocals of the pivots come first, off the chain of each row.
+template <bool RSQRT>
+__device__ __forceinline__ void solve_panel_rows(float* a, int ld, int k0, int npad,
+                                                 const float* piv, int tid) {
+  float inv[NB];
+#pragma unroll
+  for (int k = 0; k < NB; ++k) inv[k] = RSQRT ? piv[k] : 1.0f / piv[k];
+  for (int i = k0 + NB + tid; i < npad; i += CHOL_THREADS) {
+    float* ri = a + i * ld + k0;
+    float x[NB];
+    load_row(ri, x);
+#pragma unroll
+    for (int k = 0; k < NB; ++k) {
+      const float4* lk = reinterpret_cast<const float4*>(a + (k0 + k) * ld + k0);
+      float s = x[k];
+#pragma unroll
+      for (int q = 0; 4 * q < k; ++q) {
+        const float4 l = lk[q];
+        const float lq[4] = {l.x, l.y, l.z, l.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (4 * q + e < k) s -= x[4 * q + e] * lq[e];
+      }
+      x[k] = RSQRT ? s * inv[k] : div_rn(s, piv[k], inv[k]);
+    }
+    store_row(ri, x);
+  }
+}
+
+// Step 3, one 16 x 16 block at (r0, c0) of the trailing matrix, by one warp:
+// a[r][c] -= sum_t L[r][k0 + t] L[c][k0 + t]. Lane l owns rows
+// r0 + 4 (l >> 3) + 0..3 and columns c0 + (l & 7), c0 + (l & 7) + 8.
+__device__ __forceinline__ void update_block(float* a, int ld, int k0, int r0, int c0, int lane) {
+  const int rr = r0 + 4 * (lane >> 3), cc = c0 + (lane & 7);
+  float acc[4][2] = {};
+#pragma unroll
+  for (int q = 0; q < NB / 4; ++q) {
+    float4 li[4], lc[2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      li[i] = *reinterpret_cast<const float4*>(a + (rr + i) * ld + k0 + 4 * q);
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      lc[c] = *reinterpret_cast<const float4*>(a + (cc + 8 * c) * ld + k0 + 4 * q);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        acc[i][c] += li[i].x * lc[c].x + li[i].y * lc[c].y + li[i].z * lc[c].z + li[i].w * lc[c].w;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) a[(rr + i) * ld + cc + 8 * c] -= acc[i][c];
+}
+
+// vec: n % 4 == 0 and H, L 16-byte aligned (16-byte copies and stores)
+template <bool RSQRT>
+__global__ void __launch_bounds__(CHOL_THREADS)
+    chol_factor_kernel(const float* __restrict__ H, float* __restrict__ L, int n, int vec) {
+  extern __shared__ __align__(16) float a[];
+  const int npad = chol_npad(n), ld = chol_ld(n);
+  float* piv = a + npad * ld;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float* Hb = H + (size_t)blockIdx.x * n * n;
+  float* Lb = L + (size_t)blockIdx.x * n * n;
+
+  // H's lower triangle, each row up to the chunk that holds its diagonal
+  // (n <= 128: one chunk per lane per row), and the identity tail
+  if (vec) {
+    for (int i = warp; i < n; i += CHOL_WARPS)
+      if (4 * lane <= i) cp_async16(a + i * ld + 4 * lane, Hb + (size_t)i * n + 4 * lane);
+  } else {
+    for (int i = warp; i < n; i += CHOL_WARPS)
+      for (int c = lane; c <= i; c += 32) cp_async4(a + i * ld + c, Hb + (size_t)i * n + c);
+  }
+  for (int i = n + warp; i < npad; i += CHOL_WARPS)
+    for (int c = lane; c <= i; c += 32) a[i * ld + c] = (c == i) ? 1.0f : 0.0f;
+  cp_async_wait_all();
+  __syncthreads();
+
+  if (warp == 0) factor_diag<RSQRT>(a, ld, 0, piv, lane);
+  __syncthreads();
+  for (int k0 = 0; k0 + NB < npad; k0 += NB) {
+    const int k1 = k0 + NB;
+    solve_panel_rows<RSQRT>(a, ld, k0, npad, piv, tid);
+    __syncthreads();
+    if (warp == 0) {
+      update_block(a, ld, k0, k1, k1, lane);
+      __syncwarp();
+      factor_diag<RSQRT>(a, ld, k1, piv, lane);
+    } else {
+      // the other blocks of the trailing lower triangle, dealt to warps
+      // 1 .. CHOL_WARPS - 1 in turn
+      int turn = 1;
+      for (int c0 = k1; c0 < npad; c0 += NB)
+        for (int r0 = (c0 == k1) ? c0 + NB : c0; r0 < npad; r0 += NB) {
+          if (turn == warp) update_block(a, ld, k0, r0, c0, lane);
+          turn = (turn == CHOL_WARPS - 1) ? 1 : turn + 1;
+        }
+    }
+    __syncthreads();
+  }
+
+  // L: the lower triangle, zeros above it
+  if (vec) {
+    for (int i = warp; i < n; i += CHOL_WARPS) {
+      const int c = 4 * lane;
+      if (c < n) {
+        const float4 v = *reinterpret_cast<const float4*>(a + i * ld + c);
+        *reinterpret_cast<float4*>(Lb + (size_t)i * n + c) =
+            make_float4(c <= i ? v.x : 0.0f, c + 1 <= i ? v.y : 0.0f, c + 2 <= i ? v.z : 0.0f,
+                        c + 3 <= i ? v.w : 0.0f);
+      }
+    }
+  } else {
+    for (int i = warp; i < n; i += CHOL_WARPS)
+      for (int c = lane; c < n; c += 32) Lb[(size_t)i * n + c] = (c <= i) ? a[i * ld + c] : 0.0f;
   }
 }
 
@@ -129,17 +304,38 @@ __global__ void chol_solve_kernel(const float* __restrict__ L, const float* __re
   }
 }
 
-static cudaError_t set_smem(const void* fn, size_t smem) {
+// Opts `fn` in to more than the default 48 KB of dynamic shared memory. At or
+// below it (every n <= 96, so every path) no host API call is made.
+static cudaError_t reserve_smem(const void* fn, size_t smem) {
+  if (smem <= SMEM_DEFAULT) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-extern "C" int cholesky_f32(const float* H, float* L, int batch, int n, void* stream) {
+template <bool RSQRT>
+static int launch_factor(const float* H, float* L, int batch, int n, void* stream) {
   if (batch <= 0) return 0;
-  const size_t smem = sizeof(float) * (size_t)n * (n + 1);
-  cudaError_t err = set_smem((const void*)chol_kernel, smem);
+  if (n < 1 || n > CHOL_MAX_N) return (int)cudaErrorInvalidValue;
+  const size_t smem = chol_smem(n);
+  cudaError_t err = reserve_smem((const void*)chol_factor_kernel<RSQRT>, smem);
   if (err != cudaSuccess) return (int)err;
-  chol_kernel<<<batch, 256, smem, static_cast<cudaStream_t>(stream)>>>(H, L, n);
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(H) | reinterpret_cast<uintptr_t>(L);
+  const int vec = (n % 4 == 0) && (ptrs % 16 == 0);
+  chol_factor_kernel<RSQRT>
+      <<<batch, CHOL_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(H, L, n, vec);
   return (int)cudaGetLastError();
+}
+
+extern "C" int cholesky_f32(const float* H, float* L, int batch, int n, void* stream) {
+  return launch_factor<false>(H, L, batch, n, stream);
+}
+
+extern "C" int cholesky_unblocked_f32(const float* H, float* L, int batch, int n, void* stream) {
+  return launch_factor<true>(H, L, batch, n, stream);
+}
+
+// the factorization's shared memory in bytes at n, or -1 outside 1..CHOL_MAX_N
+extern "C" int cholesky_smem_bytes(int n) {
+  return (n >= 1 && n <= CHOL_MAX_N) ? (int)chol_smem(n) : -1;
 }
 
 template <bool RECIP>
@@ -148,7 +344,7 @@ static int launch_solve(const float* L, const float* b, float* x, int batch, int
   if (batch <= 0) return 0;
   if (n > 32 * MAXR) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (size_t)n * (n + 1);
-  cudaError_t err = set_smem((const void*)chol_solve_kernel<RECIP>, smem);
+  cudaError_t err = reserve_smem((const void*)chol_solve_kernel<RECIP>, smem);
   if (err != cudaSuccess) return (int)err;
   chol_solve_kernel<RECIP><<<batch, 128, smem, static_cast<cudaStream_t>(stream)>>>(L, b, x, n);
   return (int)cudaGetLastError();
@@ -157,16 +353,6 @@ static int launch_solve(const float* L, const float* b, float* x, int batch, int
 extern "C" int chol_solve_f32(const float* L, const float* b, float* x, int batch, int n,
                               void* stream) {
   return launch_solve<false>(L, b, x, batch, n, stream);
-}
-
-// K7: the caller ensures n (n + 1) floats fit in shared memory.
-extern "C" int cholesky_unblocked_f32(const float* H, float* L, int batch, int n, void* stream) {
-  if (batch <= 0) return 0;
-  const size_t smem = sizeof(float) * (size_t)n * (n + 1);
-  cudaError_t err = set_smem((const void*)chol_unblocked_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  chol_unblocked_kernel<<<batch, 32, smem, static_cast<cudaStream_t>(stream)>>>(H, L, n);
-  return (int)cudaGetLastError();
 }
 
 extern "C" int chol_solve_unblocked_f32(const float* L, const float* b, float* x, int batch,

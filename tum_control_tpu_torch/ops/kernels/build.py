@@ -45,6 +45,7 @@ SIGNATURES = {
                  "condense_aug_f32": [_P] * 5 + [_I] * 4 + [_P]},
     "chol": {"cholesky_f32": [_P, _P, _I, _I, _P], "chol_solve_f32": [_P, _P, _P, _I, _I, _P],
              "cholesky_unblocked_f32": [_P, _P, _I, _I, _P],
+             "cholesky_smem_bytes": [_I],
              "chol_solve_unblocked_f32": [_P, _P, _P, _I, _I, _P]},
     "ipm_iter": {"ipm_iteration_f32": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _P]},
 }

@@ -2,9 +2,10 @@
 
 Port of tum_control_tpu/ops/pallas_kernels/chol.py (`_chol_kernel_blocked`
 and `_solve_kernel_blocked`, launched by `_cholesky_tpu_packed` /
-`_solve_tpu_packed`). The port factors at n (76 on the main path) without
-the TPU's pad to a multiple of 16, and its factor is an ordinary
-(B, n, n) lower-triangular tensor, not an opaque lanes layout.
+`_solve_tpu_packed`). The port's factor is an ordinary (B, n, n)
+lower-triangular tensor at the caller's n (76 on the main path), not an
+opaque lanes layout; the pad to a multiple of 16 lives in the kernel's
+shared memory only.
 
   * `cholesky_ref`, `chol_solve_ref`: plain PyTorch loops (right-looking
     elimination; forward then backward substitution);
@@ -21,18 +22,46 @@ by rsqrt(a_jj), the solve multiplies by 1 / L_jj:
   * `cholesky_unblocked`, `chol_solve_unblocked`: the wrappers, dispatching
     as K3 and K5 do, to csrc/chol.cu's `*_unblocked_f32` entry points.
 
-`torch.linalg.cholesky` / `torch.cholesky_solve` compute the same functions;
-they are timing yardsticks only and are not used here.
+K3 and K7 share one kernel body (csrc/chol.cu::chol_factor_kernel, a
+blocked factorization in 16-wide panels); `chol_plan` gives its layout and
+refuses what it does not take, before any launch.
+
+`torch.linalg.cholesky_ex` / `torch.cholesky_solve` compute the same
+functions; they are timing yardsticks only and are not used here.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
 
 import torch
 
 from tum_control_tpu_torch.ops.kernels import build
 
 MAX_N_SOLVE = 128  # csrc/trisolve.cuh holds at most 4 rows per lane
-SMEM_BYTES = 232448   # shared memory a block may use on Hopper
+MAX_N_CHOL = 128   # csrc/chol.cu::CHOL_MAX_N, the solve's limit
+PANEL = 16         # csrc/chol.cu::NB
+
+
+class CholPlan(NamedTuple):
+    """Layout of the factorization kernel at n (csrc/chol.cu computes the
+    same): the matrix padded to `npad` rows with an identity tail, row-major
+    in shared memory with leading dimension `ld`, factored in `panels`
+    panels of 16 columns, in `smem_bytes` of shared memory (the matrix and
+    16 pivots)."""
+    npad: int
+    ld: int
+    panels: int
+    smem_bytes: int
+
+
+def chol_plan(n: int) -> CholPlan:
+    """The factorization kernel's layout at n; raises for n outside
+    1..MAX_N_CHOL."""
+    if not 1 <= n <= MAX_N_CHOL:
+        raise ValueError(f"the Cholesky kernel takes 1 <= n <= {MAX_N_CHOL}, got n = {n}")
+    npad = -(-n // PANEL) * PANEL
+    ld = npad + 4   # = 4 mod 8: 16-byte reads of 8 consecutive rows hit distinct banks
+    return CholPlan(npad, ld, npad // PANEL, 4 * (npad * ld + PANEL))
 
 
 def cholesky_ref(H):
@@ -67,16 +96,24 @@ def _check_square(H):
         raise ValueError(f"expected (B, n, n) matrices, got {tuple(H.shape)}")
 
 
-def cholesky_cuda(H):
+def _factor_cuda(H, fn_name, counter):
+    """Launches csrc/chol.cu's factorization (K3 or K7) on a CUDA float32
+    (B, n, n) tensor; n is checked against `chol_plan` before the library
+    is loaded."""
     _check_square(H)
     B, n, _ = H.shape
+    chol_plan(n)
+    fn = getattr(build.library("chol"), fn_name)
     L = torch.empty_like(H)
-    fn = build.library("chol").cholesky_f32
     with torch.cuda.device(H.device):
         status = fn(build.ptr(H), build.ptr(L), B, n, build.stream_of(H))
-    build.check_status("cholesky_f32", status)
-    build.LAUNCHES["cholesky"] += 1
+    build.check_status(fn_name, status)
+    build.LAUNCHES[counter] += 1
     return L
+
+
+def cholesky_cuda(H):
+    return _factor_cuda(H, "cholesky_f32", "cholesky")
 
 
 def chol_solve_cuda(L, b):
@@ -136,17 +173,7 @@ def chol_solve_unblocked_ref(L, b):
 
 
 def cholesky_unblocked_cuda(H):
-    _check_square(H)
-    B, n, _ = H.shape
-    if 4 * n * (n + 1) > SMEM_BYTES:
-        raise ValueError(f"cholesky_unblocked: n = {n} exceeds the kernel's shared memory")
-    L = torch.empty_like(H)
-    fn = build.library("chol").cholesky_unblocked_f32
-    with torch.cuda.device(H.device):
-        status = fn(build.ptr(H), build.ptr(L), B, n, build.stream_of(H))
-    build.check_status("cholesky_unblocked_f32", status)
-    build.LAUNCHES["cholesky_unblocked"] += 1
-    return L
+    return _factor_cuda(H, "cholesky_unblocked_f32", "cholesky_unblocked")
 
 
 def chol_solve_unblocked_cuda(L, b):
