@@ -14,9 +14,11 @@ Phases (any failure raises and the script exits non-zero):
      K8 on K2's inputs, K7 on K3's and K5's, since no path launches them)
      on inputs from a seeded numpy generator, holds it against its plain
      PyTorch version on the same inputs (K3 and K7 also on an
-     ill-conditioned IPM-shaped H, by backward error), and times it: the
-     kernel's device time over 100 back-to-back launches queued behind a
-     sleep (`device_ms`), one launch with the host's launch path
+     ill-conditioned IPM-shaped H, by backward error; K4 also on that H's
+     factor, a late iteration's, against the float64 plain version within
+     LATE_FACTOR of the float32 plain version's own distance), and times
+     it: the kernel's device time over 100 back-to-back launches queued
+     behind a sleep (`device_ms`), one launch with the host's launch path
      (`launch_ms`); the plain version per call; for K3, K5, K7 the PyTorch
      library call's device time (K3, K7: `torch.linalg.cholesky_ex`, and
      `torch.linalg.cholesky` beside it per call, which synchronizes with
@@ -107,6 +109,13 @@ TOL = {"linearize": 2e-5, "condense": 2e-5, "condense_from": 2e-5, "cholesky": 2
 # K3 and K7 on an ill-conditioned H (cond ~1e7-1e8): max |L L^T - H| / max |H|,
 # against n eps ~4.5e-6 at n = 76
 BACKWARD_TOL = 2e-5
+# K4 on a late iteration's factor (that H's): its directions go through cond
+# ~1e7-1e8, where two float32 orders part by more than TOL. Each output is
+# held against the float64 plain version on the same inputs, to the larger
+# of TOL and LATE_FACTOR times the float32 plain version's own distance from
+# it (two float32 evaluations of one function, each within its rounding of
+# the exact result, lie within twice that of each other)
+LATE_FACTOR = 2.0
 # the card's applied inputs simU against the CPU's float32 and float64 step
 # from the same carry: max |card - cpu| <= TOL_U * max |simU f64| per input.
 # One float32 step lies within 3e-4 (nominal) and 2e-4 (SNMPC) of the
@@ -278,25 +287,58 @@ def compare(name, outputs):
     return err, rel
 
 
-def random_qp(rng, device):
-    """A soft QP at the main-path shapes, drawn as tests/test_ipm_fused.py
-    draws its problems (mixed one-sided, two-sided and hard rows), and the
-    IPM's cold-start carry for it."""
-    f32 = np.float32
-    G = rng.standard_normal((B, NCG, NZ)).astype(f32)
-    A = rng.standard_normal((B, NZ, NZ + 4)).astype(f32)
-    H0 = (np.einsum("bij,bkj->bik", A, A) / NZ + 2.0 * np.eye(NZ)).astype(f32)
-    g0 = rng.standard_normal((B, NZ)).astype(f32)
-    c0 = rng.standard_normal((B, NC)).astype(f32)
-    lb = (c0 - np.abs(rng.standard_normal((B, NC))) - 0.1).astype(f32)
-    ub = (c0 + np.abs(rng.standard_normal((B, NC))) + 0.1).astype(f32)
+def random_qp(rng, device, batch=B, nz=NZ, ncg=NCG):
+    """A soft QP (float32; the main path's shapes by default), drawn as
+    tests/test_ipm_fused.py draws its problems (mixed one-sided, two-sided
+    and hard rows): (H0, g0, G, c0, lb, ub, z1, z2)."""
+    f32, nc = np.float32, ncg + nz
+    G = rng.standard_normal((batch, ncg, nz)).astype(f32)
+    A = rng.standard_normal((batch, nz, nz + 4)).astype(f32)
+    H0 = (np.einsum("bij,bkj->bik", A, A) / nz + 2.0 * np.eye(nz)).astype(f32)
+    g0 = rng.standard_normal((batch, nz)).astype(f32)
+    c0 = rng.standard_normal((batch, nc)).astype(f32)
+    lb = (c0 - np.abs(rng.standard_normal((batch, nc))) - 0.1).astype(f32)
+    ub = (c0 + np.abs(rng.standard_normal((batch, nc))) + 0.1).astype(f32)
     ub[:, ::7] = 1e13
     lb[:, 1::5] = -1e13
-    z1 = (np.abs(rng.standard_normal((B, NC))) * 5 + 0.5).astype(f32)
-    z2 = (np.abs(rng.standard_normal((B, NC))) * 5 + 0.5).astype(f32)
+    z1 = (np.abs(rng.standard_normal((batch, nc))) * 5 + 0.5).astype(f32)
+    z2 = (np.abs(rng.standard_normal((batch, nc))) * 5 + 0.5).astype(f32)
     z2[:, 2::6] = 1e7
     t = lambda a: torch.tensor(a, device=device)
     return tuple(t(a) for a in (H0, g0, G, c0, lb, ub, z1, z2))
+
+
+def ipm_start(qp):
+    """The IPM's cold-start carry for a QP (as ops/ipm.py builds it without a
+    warm start), the active-row count nt, and the first normal matrix
+    H = H0 + G' diag(sigma) G + diag(sigma_id + 1e-11)."""
+    from tum_control_tpu_torch.ops.kernels.ipm_iter import masks_of, sigma_of
+    H0, g0, G, c0, lb, ub, z1, z2 = qp
+    ncg = G.shape[1]
+    act_u, act_l, s_u, s_l = masks_of(lb, ub, z2)
+    one, zero = torch.ones_like(c0), torch.zeros_like(c0)
+    su, sl = torch.where(s_u, one, zero), torch.where(s_l, one, zero)
+    pu = torch.where(act_u, torch.clamp(ub + su - c0, min=1.0), one)
+    pl = torch.where(act_l, torch.clamp(c0 + sl - lb, min=1.0), one)
+    lam_u, lam_l = torch.where(act_u, one, zero), torch.where(act_l, one, zero)
+    mu_u, mu_l = torch.where(s_u, one, zero), torch.where(s_l, one, zero)
+    nt = (act_u.sum(1) + act_l.sum(1) + s_u.sum(1) + s_l.sum(1)).to(c0.dtype)
+    carry = (torch.zeros_like(g0), torch.zeros_like(c0), su, sl, pu, pl, lam_u, lam_l, mu_u, mu_l)
+    sig = sigma_of(su, sl, pu, pl, lam_u, lam_l, mu_u, mu_l, z1, z2, act_u, act_l, s_u, s_l)
+    H = (H0 + torch.matmul(G.transpose(1, 2) * sig[:, None, :ncg], G)
+         + torch.diag_embed(sig[:, ncg:] + 1e-11)).contiguous()
+    return carry, nt, H
+
+
+def k4_args(qp, carry, nt, L):
+    """K4's inputs before the carry: (L, G, rw, c0, lb, ub, z1, z2, nt), with
+    the stationarity residual rw = H0 w + g0 + [G; I]'(lam_u - lam_l)."""
+    H0, g0, G, c0, lb, ub, z1, z2 = qp
+    ncg = G.shape[1]
+    lam_d = carry[6] - carry[7]
+    rw = (torch.matmul(H0, carry[0][..., None])[..., 0] + g0
+          + torch.matmul(lam_d[:, None, :ncg], G)[:, 0] + lam_d[:, ncg:]).contiguous()
+    return (L, G, rw, c0, lb, ub, z1, z2, nt)
 
 
 def ipm_shaped_h(rng, batch, nz, ncg):
@@ -336,9 +378,7 @@ def kernel_phase(dev):
         condense_cuda, condense_from_cuda, condense_from_ref, condense_mxu_cuda,
         condense_mxu_ref, condense_ref,
     )
-    from tum_control_tpu_torch.ops.kernels.ipm_iter import (
-        fused_iteration_cuda, iteration_ref, masks_of, sigma_of,
-    )
+    from tum_control_tpu_torch.ops.kernels.ipm_iter import fused_iteration_cuda, iteration_ref
     from tum_control_tpu_torch.ops.kernels.linearize import linearize_cuda, linearize_ref
     from tum_control_tpu_torch.parallel.mesh import batched_scenarios
     from tum_control_tpu_torch.track.trajectory import load_ref_trajectory
@@ -399,7 +439,8 @@ def kernel_phase(dev):
     ctrl = build_controller(MPCConfig(), SimConfig(), device=dev)
     lr = ctrl.engine.funcs.lin_rollout
     traj = load_ref_trajectory(os.path.join(SimConfig().trajectory_path,
-                                            SimConfig().ref_traj_file), torch.float64)
+                                            SimConfig().ref_traj_file), torch.float64,
+                               device="cpu")
     x0, _ = batched_scenarios(traj, B, dtype=torch.float64)
     X = x0.numpy()[:, None, :] + rng.normal(0, 1, (B, N, NX)) * [0.5, 0.5, 0.05, 1, 0.1, 0.05,
                                                                    0.02, 0.5]
@@ -486,19 +527,8 @@ def kernel_phase(dev):
            case="snmpc")
 
     # K3, K5, K4 on one random QP's first IPM iteration
-    H0, g0, G, c0, lb, ub, z1, z2 = random_qp(rng, dev)
-    act_u, act_l, s_u, s_l = masks_of(lb, ub, z2)
-    one, zero = torch.ones_like(c0), torch.zeros_like(c0)
-    su, sl = torch.where(s_u, one, zero), torch.where(s_l, one, zero)
-    pu = torch.where(act_u, torch.clamp(ub + su - c0, min=1.0), one)
-    pl = torch.where(act_l, torch.clamp(c0 + sl - lb, min=1.0), one)
-    lam_u, lam_l = torch.where(act_u, one, zero), torch.where(act_l, one, zero)
-    mu_u, mu_l = torch.where(s_u, one, zero), torch.where(s_l, one, zero)
-    nt = (act_u.sum(1) + act_l.sum(1) + s_u.sum(1) + s_l.sum(1)).to(torch.float32)
-    carry = (torch.zeros_like(g0), torch.zeros_like(c0), su, sl, pu, pl, lam_u, lam_l, mu_u, mu_l)
-    sig = sigma_of(su, sl, pu, pl, lam_u, lam_l, mu_u, mu_l, z1, z2, act_u, act_l, s_u, s_l)
-    H = (H0 + torch.matmul(G.transpose(1, 2) * sig[:, None, :NCG], G)
-         + torch.diag_embed(sig[:, NCG:] + 1e-11)).contiguous()
+    qp = random_qp(rng, dev, B)
+    carry, nt, H = ipm_start(qp)
 
     # K3 and K7 on the QP's H, each against its plain version; bytes: the
     # lower triangle of H read, the whole L written (its strict upper
@@ -552,10 +582,7 @@ def kernel_phase(dev):
                library=functools.partial(torch.linalg.cholesky_ex, Hill), case="ill_conditioned",
                extra=dict(backward_err=be, plain_backward_err=be_plain))
 
-    lam_d = lam_u - lam_l
-    rw = (torch.matmul(H0, carry[0][..., None])[..., 0] + g0
-          + torch.matmul(lam_d[:, None, :NCG], G)[:, 0] + lam_d[:, NCG:]).contiguous()
-    args = (L, G, rw, c0, lb, ub, z1, z2, nt)
+    args = k4_args(qp, carry, nt, L)
     kc, ksig, kunc = fused_iteration_cuda(*args, carry)
     pc, psig, punc = iteration_ref(*args, carry)
     err = compare("ipm_iteration", list(zip(CARRY + ("sigma",), kc + (ksig,), pc + (psig,))))
@@ -566,6 +593,37 @@ def kernel_phase(dev):
     record("ipm_iteration", err, lambda: fused_iteration_cuda(*args, carry),
            lambda: iteration_ref(*args, carry),
            tri_bytes(NZ) + nbytes(*args[1:], *carry, *kc, ksig, kunc), ops)
+
+    # K4 at a late iteration: the same QP and carry with the float64 factor of
+    # the ill-conditioned H above (sigma up to 10^6.5 on the hard rows)
+    L_late = torch.tensor(np.linalg.cholesky(Hill.double().cpu().numpy()), dtype=torch.float32,
+                          device=dev)
+    args_l = k4_args(qp, carry, nt, L_late)
+    kc, ksig, kunc = fused_iteration_cuda(*args_l, carry)
+    pc, psig, punc = iteration_ref(*args_l, carry)
+    qc, qsig, qunc = iteration_ref(*(a.double() for a in args_l), tuple(c.double() for c in carry))
+    check(torch.equal(kunc, punc) and torch.equal(kunc, qunc),
+          "ipm_iteration/late_iteration: unconverged flags differ")
+    err, rel, vs64, plain_vs64 = 0.0, {}, {}, {}
+    for label, k, p, q in zip(CARRY + ("sigma",), kc + (ksig,), pc + (psig,), qc + (qsig,)):
+        scale = float(q.abs().max())
+        vs64[label] = float((k.double() - q).abs().max()) / scale
+        plain_vs64[label] = float((p.double() - q).abs().max()) / scale
+        lim = max(TOL["ipm_iteration"], LATE_FACTOR * plain_vs64[label])
+        check(bool(torch.isfinite(k).all()) and vs64[label] <= lim,
+              f"ipm_iteration/late_iteration.{label}: {vs64[label]:.3e} of max |plain f64| from "
+              f"the float64 plain version, beyond {lim:.3e}")
+        e = float((k.double() - p.double()).abs().max())
+        err, rel[label] = max(err, e), e / float(p.abs().max())
+    worst = max(vs64, key=vs64.get)
+    say(f"[ipm_iteration/late_iteration] against the float64 plain version, worst output {worst}:"
+        f" kernel {vs64[worst]:.3e}, float32 plain version {plain_vs64[worst]:.3e} of its max "
+        f"(held to max({TOL['ipm_iteration']:.0e}, {LATE_FACTOR:g}x the plain version's)); "
+        f"largest plain f32 - f64 over the outputs {max(plain_vs64.values()):.3e}")
+    record("ipm_iteration", (err, rel), functools.partial(fused_iteration_cuda, *args_l, carry),
+           functools.partial(iteration_ref, *args_l, carry),
+           tri_bytes(NZ) + nbytes(*args_l[1:], *carry, *kc, ksig, kunc), ops,
+           case="late_iteration", extra=dict(err_vs_f64=vs64, plain_err_vs_f64=plain_vs64))
     return results, jobs
 
 

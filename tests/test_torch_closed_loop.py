@@ -12,6 +12,7 @@ import sys
 import textwrap
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -21,8 +22,12 @@ from tum_control_tpu.api import build_simulation as j_build_simulation
 from tum_control_tpu.config import MPCConfig as JMPC, SimConfig as JSim
 from tum_control_tpu.parallel.mesh import batched_scenarios as j_batched
 from tum_control_tpu_torch.api import build_simulation
-from tum_control_tpu_torch.config import MPCConfig, SimConfig
+from tum_control_tpu_torch.config import DEFAULT_TRAJECTORY_PATH, MPCConfig, SimConfig
+from tum_control_tpu_torch.ops.ipm import init_warm
 from tum_control_tpu_torch.parallel.mesh import batched_scenarios
+from tum_control_tpu_torch.sim.disturbances import disturbance_config
+from tum_control_tpu_torch.sim.estimator import init_estimator
+from tum_control_tpu_torch.track.trajectory import load_ref_trajectory
 
 ATOL = 1e-4
 STATE_FIELDS = ("MPC_SimX", "CiLX", "DisturbedX", "simU", "simREF", "lat_dev", "vel_dev",
@@ -68,7 +73,8 @@ def test_port_imports_without_jax_and_needs_cuda_by_default():
     loads neither, and its entry points (build_simulation, build_controller
     for every controller and WMPC, load_sb3_policy, the convert functions)
     and constructors (GGTables, NominalNMPC, StochasticNMPC,
-    ReducedRobustNMPC) raise without a CUDA device unless the caller names
+    ReducedRobustNMPC, load_ref_trajectory, disturbance_config,
+    init_estimator, init_warm) raise without a CUDA device unless the caller names
     a device."""
     code = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
@@ -95,6 +101,10 @@ def test_port_imports_without_jax_and_needs_cuda_by_default():
         from tum_control_tpu_torch.controllers.rnmpc import ReducedRobustNMPC
         from tum_control_tpu_torch.controllers.snmpc import StochasticNMPC
         from tum_control_tpu_torch.learn.policy import load_sb3_policy
+        from tum_control_tpu_torch.ops.ipm import init_warm
+        from tum_control_tpu_torch.sim.disturbances import disturbance_config
+        from tum_control_tpu_torch.sim.estimator import init_estimator
+        from tum_control_tpu_torch.track.trajectory import load_ref_trajectory
 
         def needs_cuda(name, fn):
             try:
@@ -135,6 +145,12 @@ def test_port_imports_without_jax_and_needs_cuda_by_default():
         needs_cuda("convert.rti_state", lambda: convert.rti_state(state))
         needs_cuda("convert.gg_tables", lambda: convert.gg_tables(dict(zip(
             ("vel", "ax_max", "ax_min", "ay_max"), table))))
+        traj_file = sim.trajectory_path + "/" + sim.ref_traj_file
+        needs_cuda("load_ref_trajectory", lambda: load_ref_trajectory(traj_file))
+        needs_cuda("disturbance_config", lambda: disturbance_config("gaussian", z(7)))
+        needs_cuda("init_estimator", lambda: init_estimator(2))
+        needs_cuda("init_warm", lambda: init_warm(2, 154))
+        assert load_ref_trajectory(traj_file, device="cpu").pos.device.type == "cpu"
         build_simulation(sim, MPCConfig(), device="cpu")
         build_simulation(sim, snmpc, device="cpu")
         build_simulation(sim, wmpc, device="cpu")
@@ -148,3 +164,25 @@ def test_port_imports_without_jax_and_needs_cuda_by_default():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "ISOLATED-OK" in out.stdout
+
+
+# each public constructor of fresh tensors, called without a device, and
+# the tensor it puts on the device it resolves
+LOADERS = {
+    "load_ref_trajectory": lambda **kw: load_ref_trajectory(
+        os.path.join(DEFAULT_TRAJECTORY_PATH, "reftraj_monteblanco_edgar.json"), **kw).pos,
+    "disturbance_config": lambda **kw: disturbance_config("gaussian", np.ones(7), **kw).magnitudes,
+    "init_estimator": lambda **kw: init_estimator(3, **kw).buf,
+    "init_warm": lambda **kw: init_warm(3, 154, **kw).su,
+}
+
+
+@pytest.mark.parametrize("loader", list(LOADERS))
+def test_loaders_need_cuda_unless_given_a_device(monkeypatch, loader):
+    """Without a CUDA device, each loader raises unless the caller names a
+    device, as the entry points do (device.resolve_device); given
+    device="cpu", its tensors lie on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LOADERS[loader]()
+    assert LOADERS[loader](device="cpu").device.type == "cpu"

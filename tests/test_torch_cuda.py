@@ -2,7 +2,10 @@
 PyTorch version on the same CUDA float32 inputs, the dispatch rule's
 refusals, the launch counters, and a short closed loop of each ported
 controller (nominal, R2NMPC and WMPC over R2NMPC: K1-K5; SNMPC: K1, K3-K6).
-K7 and K8, which no path launches, are held on their own inputs.
+K7 and K8, which no path launches, are held on their own inputs. K4 is also
+held on its own, at ragged and the shipped shapes and with a non-finite
+factor; K1 at the SNMPC shape and at a ragged element count; the kernels'
+own launch-shape queries against the Python plans.
 
 Marked `cuda`; without a CUDA device every test skips. On a GPU machine:
 
@@ -12,11 +15,16 @@ Tolerances: float32 on both sides in different operation orders, held for
 each output as max |kernel - plain| <= tol * max(1, max |plain|); on an
 ill-conditioned H the factorizations are held by backward error instead.
 """
+import ctypes
+import os
+
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import BACKWARD_TOL, PATH_CONFIG, backward_error, ipm_shaped_h
+from chip_smoke import (
+    BACKWARD_TOL, PATH_CONFIG, backward_error, ipm_shaped_h, ipm_start, k4_args, random_qp,
+)
 from tum_control_tpu_torch.api import build_controller, build_simulation
 from tum_control_tpu_torch.config import MPCConfig, SimConfig
 from tum_control_tpu_torch.ops.kernels import build
@@ -27,7 +35,10 @@ from tum_control_tpu_torch.ops.kernels.chol import (
 from tum_control_tpu_torch.ops.kernels.condense import (
     condense, condense_from, condense_from_ref, condense_mxu, condense_mxu_ref, condense_ref,
 )
+from tum_control_tpu_torch.ops.kernels.ipm_iter import fused_iteration, ipm_plan, iteration_ref
+from tum_control_tpu_torch.ops.kernels.linearize import linearize_plan, linearize_ref
 from tum_control_tpu_torch.parallel.mesh import batched_scenarios
+from tum_control_tpu_torch.track.trajectory import load_ref_trajectory
 
 pytestmark = pytest.mark.cuda
 
@@ -232,6 +243,119 @@ def test_dispatch_refuses_what_the_kernels_do_not_take(dev):
         cholesky(H.transpose(1, 2))
     with pytest.raises(ValueError):
         chol_solve(H, torch.zeros(2, 8))  # one tensor on the CPU
+
+
+def _k4_case(B, nz, ncg, seed, dev):
+    """A random soft QP's first IPM iteration: K4's inputs before the
+    carry, with the factor of H taken in float64, and the carry."""
+    qp = random_qp(np.random.default_rng(seed), dev, B, nz, ncg)
+    carry, nt, H = ipm_start(qp)
+    L = torch.tensor(np.linalg.cholesky(H.double().cpu().numpy()), dtype=torch.float32, device=dev)
+    return k4_args(qp, carry, nt, L), carry
+
+
+# ragged nz (one, two and three substitution blocks, each with a padded tail),
+# batches that are not a multiple of 32, and the shipped shape
+K4_SHAPES = [(3, 5, 6), (130, 17, 20), (7, 40, 44), (128, 76, 78)]
+
+
+@pytest.mark.parametrize("B,nz,ncg", K4_SHAPES)
+def test_ipm_iteration_kernel(dev, B, nz, ncg):
+    """K4 against iteration_ref on the same float32 inputs: every carry
+    output and sigma to 1e-4 (float32 in two operation orders through a
+    factor of cond ~1e3), the unconverged flags equal; one launch."""
+    args, carry = _k4_case(B, nz, ncg, 30 + nz, dev)
+    build.reset_launches()
+    kc, ksig, kunc = fused_iteration(*args, carry)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["ipm_iteration"] == 1
+    pc, psig, punc = iteration_ref(*args, carry)
+    for g, r in zip(kc + (ksig,), pc + (psig,)):
+        _close(g, r, 1e-4)
+    assert torch.equal(kunc, punc)
+
+
+def test_ipm_iteration_keeps_the_carry_of_a_non_finite_factor(dev):
+    """A factor with a NaN (what a failed factorization leaves) gives a
+    non-finite direction: that scenario keeps its carry, its sigma is the
+    carry's, `unconverged` is the plain version's, and every other
+    scenario of the batch is held as usual."""
+    args, carry = _k4_case(130, 76, 78, 41, dev)
+    L = args[0].clone()
+    bad = torch.zeros(130, dtype=torch.bool, device=dev)
+    for k, i, j in ((0, 5, 3), (64, 75, 75), (129, 40, 0)):
+        L[k, i, j] = float("nan")
+        bad[k] = True
+    args = (L,) + args[1:]
+    kc, ksig, kunc = fused_iteration(*args, carry)
+    pc, psig, punc = iteration_ref(*args, carry)
+    torch.cuda.synchronize()
+    assert torch.equal(kunc, punc)
+    for g, c in zip(kc, carry):
+        assert torch.equal(g[bad], c[bad])
+    for g, r in zip(kc + (ksig,), pc + (psig,)):
+        assert torch.isfinite(g).all()
+        _close(g[~bad], r[~bad], 1e-4)
+
+
+def test_ipm_iteration_plan_matches_the_kernel(dev):
+    """csrc/ipm_iter.cu's launch shape at each (nz, ncg) equals ipm_plan's,
+    and both refuse the same shapes."""
+    lib = build.library("ipm_iter")
+    out = (ctypes.c_int * 6)()
+    for nz in (1, 5, 16, 17, 40, 76, 80, 96, 128):
+        for ncg in (0, 3, 20, 78, 200, 384, 500):
+            ok = lib.ipm_iteration_plan(nz, ncg, out) == 0
+            try:
+                plan = ipm_plan(nz, ncg)
+            except ValueError:
+                assert not ok, (nz, ncg)
+                continue
+            assert ok and tuple(out) == plan[:6], (nz, ncg, tuple(out), plan)
+
+
+@pytest.mark.parametrize("case", ["snmpc", "ragged"])
+def test_linearize_kernel_shapes(dev, case):
+    """K1 at the SNMPC shape (128 scenarios x 88 elements, one RK4 substep)
+    and at 3 x 37 elements of the nominal step (a ragged last block), on
+    states spread about starts along the lap as chip_smoke.py draws them:
+    F and every column of J to 2e-5 of its max |plain|; one launch. (Near
+    standstill, where an RK4 stage crosses the low-speed guard and J grows
+    as 1 / vlong^2, two float32 orders part by more; the guard is held in
+    test_linearize_and_condense_kernels.)"""
+    if case == "snmpc":
+        lr = build_controller(MPCConfig(controller="snmpc"), SimConfig(), device=dev).lin_roll8
+        B, N = 128, 88
+    else:
+        lr = build_controller(MPCConfig(), SimConfig(), device=dev).engine.funcs.lin_rollout
+        B, N = 3, 37
+    rng = np.random.default_rng(11)
+    traj = load_ref_trajectory(os.path.join(SimConfig().trajectory_path,
+                                            SimConfig().ref_traj_file), torch.float64, device="cpu")
+    x0, _ = batched_scenarios(traj, B, dtype=torch.float64)
+    X = x0.numpy()[:, None, :] + rng.normal(0, 1, (B, N, 8)) * [0.5, 0.5, 0.05, 1, 0.1, 0.05,
+                                                                0.02, 0.5]
+    XU = np.concatenate([X, rng.normal(0, 1, (B, N, 2)) * [1.0, 0.1]], axis=2)
+    XU = torch.tensor(XU, dtype=torch.float32, device=dev)
+    build.reset_launches()
+    F, J = lr(XU)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["linearize"] == 1
+    Fp, Jp = linearize_ref(XU, lr.step, 8)
+    for g, r in [(F, Fp)] + [(J[..., c], Jp[..., c]) for c in range(10)]:
+        err = float((g.double() - r.double()).abs().max())
+        assert err <= 2e-5 * float(r.abs().max()), err
+
+
+def test_linearize_plan_matches_the_kernel(dev):
+    """csrc/linearize.cu's launch shape at each element count equals
+    linearize_plan's."""
+    lib = build.library("linearize")
+    out = (ctypes.c_int * 4)()
+    for n_el in (1, 111, 4864, 11264, 100000):
+        assert lib.linearize_launch_plan(n_el, out) == 0
+        assert tuple(out) == linearize_plan(n_el)[:4], n_el
+    assert lib.linearize_launch_plan(0, out) == -1
 
 
 # launches over 5 closed-loop steps, per path of chip_smoke.PATH_CONFIG: one K1 and one

@@ -16,6 +16,8 @@ the JAX package's references, on the CPU; and the wrappers' dispatch rule.
   K3, K7 on an ill-conditioned IPM-shaped H (cond ~1e6-5e7) vs
                      jnp.linalg.cholesky; chol_plan's layout, and the
                      wrappers' refusals before any launch
+  K4, K1             ipm_plan's and linearize_plan's launch shapes; the K4
+                     wrapper's refusals before any launch
 
 The CUDA kernels themselves run only on the card (tests/test_torch_cuda.py,
 chip_smoke.py), where they are held against these plain versions.
@@ -47,7 +49,11 @@ from tum_control_tpu_torch.ops.kernels.chol import (
     chol_solve_unblocked_ref, cholesky, cholesky_ref, cholesky_unblocked, cholesky_unblocked_ref,
 )
 from tum_control_tpu_torch.ops.kernels.condense import condense, condense_mxu, condense_mxu_ref
-from tum_control_tpu_torch.ops.kernels.ipm_iter import fused_iteration, masks_of, sigma_of
+from tum_control_tpu_torch.ops.kernels import ipm_iter as tipm
+from tum_control_tpu_torch.ops.kernels.ipm_iter import (
+    IpmPlan, fused_iteration, ipm_plan, masks_of, sigma_of,
+)
+from tum_control_tpu_torch.ops.kernels.linearize import LinearizePlan, linearize_plan
 
 from chip_smoke import ipm_shaped_h
 from test_ipm_fused import _init_carry, _random_problem
@@ -381,3 +387,71 @@ def test_k3_k7_wrappers_refuse_before_launch(monkeypatch, factor, case):
         with pytest.raises(ValueError):
             factor(_OnCard(H))
     assert all(v == 0 for v in build.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("nz,ncg,plan", [
+    (76, 78, IpmPlan(80, 84, 256, 12, 7, 64080, 255)),
+    (5, 6, IpmPlan(16, 20, 256, 6, 1,
+                   4 * (16 * 20 + 6 * 20 + 16 + 16 * 16 + 12 + 16 + 6 * 16 + 192), 255)),
+    (17, 20, IpmPlan(32, 36, 256, 20, 1,
+                     4 * (32 * 36 + 20 * 36 + 32 + 32 * 16 + 40 + 32 + 20 * 32 + 192), 255)),
+    (128, 128, IpmPlan(128, 132, 256, 8, 16,
+                       4 * (128 * 132 + 128 * 132 + 128 + 128 * 16 + 256 + 128 + 8 * 128 + 192),
+                       255)),
+])
+def test_k4_plan(nz, ncg, plan):
+    """K4's launch shape: L padded to a multiple of 16 rows, ld = npad + 4
+    (= 4 mod 8), one block of 256 threads (one per constraint row), G^T y in
+    slices over as many threads as hold a float4 of columns (no empty
+    slice); shared memory for L, G, 1 / L_jj, the transposed diagonal
+    blocks, y, x, the slices' sums and 3 reductions, above 48 KB at the
+    shipped shape."""
+    assert ipm_plan(nz, ncg) == plan
+    assert plan.ld % 8 == 4 and plan.threads % 32 == 0
+    assert plan.parts * plan.rows_per_part >= ncg > (plan.parts - 1) * plan.rows_per_part
+
+
+@pytest.mark.parametrize("nz,ncg", [(0, 10), (129, 10), (20, 237), (8, -1), (128, 129)])
+def test_k4_plan_refuses(nz, ncg):
+    """nz outside 1..128, ncg + nz above 256 rows, or a negative ncg."""
+    with pytest.raises(ValueError):
+        ipm_plan(nz, ncg)
+
+
+@pytest.mark.parametrize("case", ["in_range", "nz_above_max", "too_many_rows", "float64"])
+def test_k4_wrapper_refuses_before_launch(monkeypatch, case):
+    """On the card the K4 wrapper takes what ipm_plan takes, in contiguous
+    float32 tensors; anything else raises before the kernel's library is
+    loaded, and no launch is counted. Loading the library stops the call
+    here, which shows the launch was reached."""
+
+    class Launched(Exception):
+        pass
+
+    def library(name):
+        raise Launched(name)
+
+    monkeypatch.setattr(tipm.build, "library", library)
+    nz, ncg = {"nz_above_max": (129, 10), "too_many_rows": (100, 160)}.get(case, (76, 78))
+    nc, B = nz + ncg, 2
+    dt = torch.float64 if case == "float64" else torch.float32
+    z = lambda *s: _OnCard(torch.zeros(*s, dtype=dt))
+    args = (z(B, nz, nz), z(B, ncg, nz), z(B, nz)) + tuple(z(B, nc) for _ in range(5)) + (z(B),)
+    carry = (z(B, nz),) + tuple(z(B, nc) for _ in range(9))
+    build.reset_launches()
+    expected = {"in_range": Launched, "float64": TypeError}.get(case, ValueError)
+    with pytest.raises(expected):
+        fused_iteration(*args, carry)
+    assert all(v == 0 for v in build.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("n_el,blocks", [(1, 1), (111, 9), (4864, 380), (11264, 880)])
+def test_k1_plan(n_el, blocks):
+    """K1's launch shape: one tangent per thread, 10 threads per element,
+    128 threads a block; the SNMPC shape (11,264 elements) in 880 blocks,
+    which 7 blocks per SM (at most 73 registers a thread) keep resident at
+    once on 132 SMs; n_el < 1 refused."""
+    assert linearize_plan(n_el) == LinearizePlan(128, blocks, 1, 10, 73)
+    assert linearize_plan(11264).blocks <= 7 * 132
+    with pytest.raises(ValueError):
+        linearize_plan(0)

@@ -32,7 +32,7 @@ TRACKS = ["monteblanco", "modena"]
 
 def _load(track):
     path = os.path.join(TRAJ, f"reftraj_{track}_edgar.json")
-    return path, jtraj.load_ref_trajectory(path), ttraj.load_ref_trajectory(path, torch.float64)
+    return path, jtraj.load_ref_trajectory(path), ttraj.load_ref_trajectory(path, torch.float64, device="cpu")
 
 
 @pytest.mark.parametrize("track", TRACKS)
@@ -80,7 +80,7 @@ def test_planner_argmin_first_index_on_ties():
 def test_estimator_ring_buffer():
     rng = np.random.default_rng(6)
     xs = rng.normal(0, 1, (20, 3, 8))  # 20 pushes of 3 scenarios
-    st_t = test_.init_estimator(3, 8, torch.float64)
+    st_t = test_.init_estimator(3, 8, torch.float64, device="cpu")
     st_j = jax.vmap(lambda _: jest.init_estimator(8, jnp.float64))(jnp.arange(3))
     step_j = jax.vmap(jest.estimate)
     for x in xs:
@@ -106,11 +106,11 @@ def test_disturbance_draws():
     bound for 'absolute', inside the ellipsoid for 'uniform', and the
     per-component std for 'gaussian' (4-sigma band on 4000 draws)."""
     mag = np.array([0.8, 0.8, 0.1, 1.1, 0.1, 0.05, 0.1])
-    mk = lambda kind: tdist.disturbance_config(kind, mag, dtype=torch.float64)
+    mk = lambda kind: tdist.disturbance_config(kind, mag, dtype=torch.float64, device="cpu")
     gen = lambda: torch.Generator().manual_seed(7)
     assert tdist.TYPE_NONE == 0
     assert torch.count_nonzero(tdist.draw_disturbance(
-        tdist.disturbance_config("gaussian", mag, enabled=False), gen(), 5)) == 0
+        tdist.disturbance_config("gaussian", mag, enabled=False, device="cpu"), gen(), 5)) == 0
     np.testing.assert_array_equal(tdist.draw_disturbance(mk("absolute"), gen(), 3).numpy(),
                                   np.tile(mag, (3, 1)))
     u1 = tdist.draw_disturbance(mk("uniform"), gen(), 4000)

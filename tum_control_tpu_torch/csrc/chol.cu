@@ -78,29 +78,6 @@ __host__ __device__ inline int chol_npad(int n) { return (n + NB - 1) / NB * NB;
 __host__ __device__ inline int chol_ld(int n) { return chol_npad(n) + 4; }
 static size_t chol_smem(int n) { return sizeof(float) * ((size_t)chol_npad(n) * chol_ld(n) + NB); }
 
-// a / b from y = 1 / b (correctly rounded) and one FMA correction of the
-// quotient (Markstein): within an ulp of a / b, and in nearly every case the
-// same float. K3's quotients go through it: the IEEE division `a / b`
-// compiles to a sequence with a slow-path branch on the pivot chain, while
-// one reciprocal per pivot, taken by every lane, and a multiply and two FMAs
-// per quotient schedule freely.
-__device__ __forceinline__ float div_rn(float a, float b, float y) {
-  const float q = a * y;
-  return fmaf(fmaf(-q, b, a), y, q);
-}
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
-
 // NB consecutive floats of shared memory (16-byte aligned) to registers and back
 __device__ __forceinline__ void load_row(const float* p, float (&r)[NB]) {
 #pragma unroll

@@ -1,6 +1,7 @@
 // Small helpers shared by the kernels: NaN-propagating min/max (the
-// semantics of jnp.minimum / torch.minimum, unlike fminf which drops NaN)
-// and block-wide reductions over blockDim.x <= 1024 threads.
+// semantics of jnp.minimum / torch.minimum, unlike fminf which drops NaN), a
+// quotient from a reciprocal (div_rn) and asynchronous copies to shared
+// memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -16,34 +17,25 @@ __device__ __forceinline__ float pmax(float a, float b) {
   return (a > b || isnan(a)) ? a : b;
 }
 
-// Sum over the block; every thread gets the result. `scratch` holds 32
-// floats of shared memory; the call synchronises the block twice.
-__device__ __forceinline__ float block_sum(float v, float* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  float r = 0.0f;
-  for (int w = 0; w < nwarps; ++w) r += scratch[w];
-  __syncthreads();
-  return r;
+// a / b from y = 1 / b (correctly rounded) and one FMA correction of the
+// quotient (Markstein): within an ulp of a / b, and in nearly every case the
+// same float. K3's and K4's quotients go through it: the IEEE division `a / b`
+// compiles to a sequence with a slow-path branch on the pivot chain, while
+// one reciprocal per pivot, taken by every lane, and a multiply and two FMAs
+// per quotient schedule freely.
+__device__ __forceinline__ float div_rn(float a, float b, float y) {
+  const float q = a * y;
+  return fmaf(fmaf(-q, b, a), y, q);
 }
 
-// NaN-propagating min over the block; every thread gets the result.
-__device__ __forceinline__ float block_min(float v, float* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  for (int o = 16; o > 0; o >>= 1) v = pmin(v, __shfl_xor_sync(FULL_MASK, v, o));
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  float r = scratch[0];
-  for (int w = 1; w < nwarps; ++w) r = pmin(r, scratch[w]);
-  __syncthreads();
-  return r;
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
 
-// Logical AND over the block; every thread gets the result.
-__device__ __forceinline__ bool block_all(bool v) {
-  return __syncthreads_and(v) != 0;
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
 }
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }

@@ -15,6 +15,7 @@ from typing import NamedTuple
 
 import torch
 
+from tum_control_tpu_torch.device import resolve_device
 from tum_control_tpu_torch.ops.kernels.chol import cholesky
 from tum_control_tpu_torch.ops.kernels.ipm_iter import fused_iteration, masks_of, sigma_of
 from tum_control_tpu_torch.ops.soft_qp import CondensedQP, con_normal, mv, mtv, newton_polish
@@ -41,6 +42,9 @@ class IPMStats(NamedTuple):
 
 
 def init_warm(batch: int, nc: int, dtype=None, device=None) -> IPMWarm:
+    """All-ones warm start on `device` (device.resolve_device: cuda unless
+    the caller names a device)."""
+    device = resolve_device(device)
     ones = torch.ones((batch, nc), dtype=dtype, device=device)
     return IPMWarm(*(ones.clone() for _ in range(6)))
 

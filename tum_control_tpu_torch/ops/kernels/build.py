@@ -39,7 +39,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points of each library: argument types (every pointer and the
 # stream as c_void_p); each returns the cudaError_t of its launch as int
 SIGNATURES = {
-    "linearize": {"linearize_f32": [_P, _P, _P, _I, _P, _I, _P]},
+    "linearize": {"linearize_f32": [_P, _P, _P, _I, _P, _I, _P],
+                  "linearize_launch_plan": [_I, _P]},
     "condense": {"condense_f32": [_P] * 6 + [_I] * 4 + [_P],
                  "condense_from_f32": [_P] * 7 + [_I] * 6 + [_P],
                  "condense_aug_f32": [_P] * 5 + [_I] * 4 + [_P]},
@@ -47,7 +48,8 @@ SIGNATURES = {
              "cholesky_unblocked_f32": [_P, _P, _I, _I, _P],
              "cholesky_smem_bytes": [_I],
              "chol_solve_unblocked_f32": [_P, _P, _P, _I, _I, _P]},
-    "ipm_iter": {"ipm_iteration_f32": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _P]},
+    "ipm_iter": {"ipm_iteration_f32": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
+                 "ipm_iteration_plan": [_I, _I, _P]},
 }
 
 _LIBS: dict = {}

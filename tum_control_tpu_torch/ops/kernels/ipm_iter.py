@@ -10,7 +10,9 @@ layout the RTI engine builds.
     centred directions, fraction-to-boundary step, Mehrotra centring and
     guarded update);
   * `fused_iteration`: the wrapper. CPU tensors -> `iteration_ref`; CUDA
-    float32 tensors -> csrc/ipm_iter.cu; anything else raises.
+    float32 tensors -> csrc/ipm_iter.cu; anything else raises;
+  * `ipm_plan`: the kernel's launch shape at (nz, ncg), and a raise for
+    shapes it refuses, before any launch.
 
 Carry order (10 tensors): w (B,nz), Gw, su, sl, pu, pl, lam_u, lam_l, mu_u,
 mu_l (B,nc). Returns (carry', sigma (B,nc), unconverged (B,) bool).
@@ -18,11 +20,51 @@ mu_l (B,nc). Returns (carry', sigma (B,nc), unconverged (B,) bool).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from tum_control_tpu_torch.ops.kernels import build
-from tum_control_tpu_torch.ops.kernels.chol import MAX_N_SOLVE, chol_solve_ref
+from tum_control_tpu_torch.ops.kernels.chol import chol_solve_ref
+
+MAX_NZ = 128          # csrc/ipm_iter.cu::K4_MAX_NZ
+THREADS = 256         # K4_THREADS: one thread per constraint row, nc <= 256
+BLOCK = 16            # NB, the substitution's block
+
+
+class IpmPlan(NamedTuple):
+    """Launch shape of csrc/ipm_iter.cu at (nz, ncg) (its `k4_layout`): L
+    padded to `npad` rows, L and G row-major in shared memory with leading
+    dimension `ld`; `threads` per block (256, one per constraint row;
+    rows past nc are inert); G^T y split into `parts` slices of
+    `rows_per_part` rows; `smem_bytes` of shared memory (L, G, 1 / L_jj,
+    L's diagonal blocks transposed, y, x, the partial sums, 3 x 64 floats
+    of reduction scratch; at most 150,272 at nz = 128, nc = 256).
+    `max_registers` per thread is the cap that `__launch_bounds__(256, 1)`
+    leaves, the hardware's 255."""
+    npad: int
+    ld: int
+    threads: int
+    parts: int
+    rows_per_part: int
+    smem_bytes: int
+    max_registers: int
+
+
+def ipm_plan(nz: int, ncg: int) -> IpmPlan:
+    """The K4 kernel's launch shape; raises for nz outside 1..MAX_NZ,
+    ncg < 0 or nc = ncg + nz > THREADS."""
+    nc = ncg + nz
+    if not 1 <= nz <= MAX_NZ or ncg < 0 or nc > THREADS:
+        raise ValueError(f"the ipm_iter kernel takes 1 <= nz <= {MAX_NZ}, ncg >= 0 and "
+                         f"ncg + nz <= {THREADS}; got nz = {nz}, ncg = {ncg}")
+    npad = -(-nz // BLOCK) * BLOCK
+    ld = npad + 4   # = 4 mod 8: 16-byte reads of 8 consecutive rows hit distinct banks
+    parts = max(1, min(THREADS // (npad // 4), ncg))
+    rows_per_part = -(-ncg // parts)
+    floats = (npad * ld + ncg * ld + npad + npad * BLOCK + -(-nc // 4) * 4 + npad
+              + parts * npad + 3 * 64)
+    return IpmPlan(npad, ld, THREADS, parts, rows_per_part, 4 * floats, 255)
 
 
 def masks_of(lb, ub, z2):
@@ -150,18 +192,17 @@ def fused_iteration_cuda(L, G, rw, c0, lb, ub, z1, z2, nt, carry, gamma_ftb: flo
     """Launch csrc/ipm_iter.cu; all inputs contiguous CUDA float32."""
     B, ncg, nz = G.shape
     nc = ncg + nz
-    if nz > MAX_N_SOLVE or nc > 1024:
-        raise ValueError(f"ipm_iter kernel supports nz <= {MAX_N_SOLVE}, nc <= 1024; got {nz}, {nc}")
+    ipm_plan(nz, ncg)
     shapes = [(B, nz, nz), (B, ncg, nz), (B, nz)] + [(B, nc)] * 5 + [(B,), (B, nz)] + [(B, nc)] * 9
     ins = (L, G, rw, c0, lb, ub, z1, z2, nt) + tuple(carry)
     for t, s in zip(ins, shapes):
         if tuple(t.shape) != s:
             raise ValueError(f"ipm_iter: expected shape {s}, got {tuple(t.shape)}")
+    fn = build.library("ipm_iter").ipm_iteration_f32
     outs = [torch.empty_like(x) for x in carry] + [torch.empty_like(c0)]
     unc = torch.empty((B,), dtype=torch.bool, device=G.device)
     in_ptrs = (ctypes.c_void_p * 19)(*[t.data_ptr() for t in ins])
     out_ptrs = (ctypes.c_void_p * 11)(*[t.data_ptr() for t in outs])
-    fn = build.library("ipm_iter").ipm_iteration_f32
     with torch.cuda.device(G.device):
         status = fn(ctypes.cast(in_ptrs, ctypes.c_void_p), ctypes.cast(out_ptrs, ctypes.c_void_p),
                     build.ptr(unc), B, nz, ncg, gamma_ftb, build.stream_of(G))

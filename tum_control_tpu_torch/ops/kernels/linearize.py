@@ -7,18 +7,46 @@ over one shooting interval, and J = dF/d(x, u).
   * `linearize_ref`: the plain PyTorch version, `torch.func.jacfwd` of the
     array-form step (the analogue of the JAX package's `jacfwd_path`);
   * `LinearizeRollout`: the wrapper. CPU tensors -> `linearize_ref`; CUDA
-    float32 tensors -> csrc/linearize.cu; anything else raises.
+    float32 tensors -> csrc/linearize.cu; anything else raises;
+  * `linearize_plan`: the kernel's launch shape at a given element count.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
 from tum_control_tpu_torch.models.integrators import rk4_multistep
 from tum_control_tpu_torch.models.vehicle_stm import G_ACC, pred_ode
 from tum_control_tpu_torch.ops.kernels import build
+
+
+TANGENTS_PER_THREAD = 1   # csrc/linearize.cu::LIN_ND
+THREADS = 128             # LIN_THREADS
+MIN_BLOCKS_PER_SM = 7     # LIN_MIN_BLOCKS: at most 65536 / (7 * 128) = 73 registers a thread
+
+
+class LinearizePlan(NamedTuple):
+    """Launch shape of csrc/linearize.cu at `n_el` elements: `threads` per
+    block, `blocks`, each thread carrying `tangents_per_thread` of the 10
+    input directions, so `threads_per_element` threads per element;
+    `max_registers` per thread is the cap its launch bound sets."""
+    threads: int
+    blocks: int
+    tangents_per_thread: int
+    threads_per_element: int
+    max_registers: int
+
+
+def linearize_plan(n_el: int) -> LinearizePlan:
+    """The K1 kernel's launch shape; raises for n_el < 1."""
+    if n_el < 1:
+        raise ValueError(f"the linearize kernel takes at least one element, got {n_el}")
+    per_el = 10 // TANGENTS_PER_THREAD
+    return LinearizePlan(THREADS, -(-n_el * per_el // THREADS), TANGENTS_PER_THREAD, per_el,
+                         65536 // (MIN_BLOCKS_PER_SM * THREADS))
 
 
 def make_step(vp, tp, dt: float, n_sub: int):
@@ -47,19 +75,21 @@ def linearize_ref(XU, step, nx: int):
 
 
 def kernel_params(vp, tp, dt: float, n_sub: int):
-    """The model constants in csrc/model.cuh's ModelParams order, then the
-    RK4 step sizes h, h/2, h/6 (computed in double, as the plain version's
-    Python floats)."""
+    """The model constants in csrc/model.cuh's ModelParams order (the
+    reciprocals of its constant divisors last), then the RK4 step sizes h,
+    h/2, h/6 (computed in double, as the plain version's Python floats)."""
     Fz_f = vp.m * vp.lr * G_ACC / (vp.lf + vp.lr)
     Fz_r = vp.m * vp.lf * G_ACC / (vp.lf + vp.lr)
+    Fmax_f = math.sqrt(Fz_f**2 + (tp.Cf * Fz_f) ** 2)
+    Fmax_r = math.sqrt(Fz_r**2 + (tp.Cr * Fz_r) ** 2)
     h = dt / n_sub
     vals = [
         vp.lf, vp.lr, vp.m, vp.Iz, 0.5 * vp.ro * vp.S * vp.Cd,
         vp.m * G_ACC * math.sin(vp.banking) * math.sin(tp.mu),
         vp.m * G_ACC * math.sin(vp.banking) * math.cos(tp.mu),
-        vp.fr0, vp.fr1, vp.fr4, Fz_f, Fz_r,
-        math.sqrt(Fz_f**2 + (tp.Cf * Fz_f) ** 2), math.sqrt(Fz_r**2 + (tp.Cr * Fz_r) ** 2),
+        vp.fr0, vp.fr1, vp.fr4, Fz_f, Fz_r, Fmax_f, Fmax_r,
         tp.Bf, tp.Cf, tp.Df, tp.Ef, tp.Br, tp.Cr, tp.Dr, tp.Er,
+        1.0 / vp.m, 1.0 / vp.Iz, 1.0 / Fmax_f, 1.0 / Fmax_r,
         h, 0.5 * h, h / 6.0,
     ]
     return (ctypes.c_double * len(vals))(*vals)

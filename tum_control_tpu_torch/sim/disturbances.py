@@ -17,6 +17,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tum_control_tpu_torch.device import resolve_device
+
 TYPE_NONE, TYPE_UNIFORM, TYPE_GAUSSIAN, TYPE_ABSOLUTE = 0, 1, 2, 3
 
 _TYPE_BY_NAME = {
@@ -34,6 +36,9 @@ class DisturbanceConfig(NamedTuple):
 
 def disturbance_config(type_name: str, magnitudes, enabled: bool = True,
                        dtype=None, device=None) -> DisturbanceConfig:
+    """The stream's kind and magnitudes on `device` (device.resolve_device:
+    cuda unless the caller names a device)."""
+    device = resolve_device(device)
     kind = _TYPE_BY_NAME[type_name] if enabled else TYPE_NONE
     return DisturbanceConfig(
         kind=kind,

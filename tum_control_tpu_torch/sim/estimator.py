@@ -12,6 +12,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tum_control_tpu_torch.device import resolve_device
+
 BUF = 15
 WINDOW_SIZES = np.array([1, 1, 4, 2, 2, 3, 4, 2])
 
@@ -22,6 +24,9 @@ class EstimatorState(NamedTuple):
 
 
 def init_estimator(batch: int, nx: int = 8, dtype=None, device=None) -> EstimatorState:
+    """Empty buffers on `device` (device.resolve_device: cuda unless the
+    caller names a device)."""
+    device = resolve_device(device)
     return EstimatorState(
         buf=torch.zeros((batch, nx, BUF), dtype=dtype, device=device),
         count=torch.zeros((batch,), dtype=torch.int32, device=device),

@@ -14,6 +14,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tum_control_tpu_torch.device import resolve_device
+
 
 class RefTrajectory(NamedTuple):
     pos: torch.Tensor       # (M, 2) pos_x, pos_y
@@ -42,7 +44,9 @@ def postprocess_yaw(yaw):
 
 
 def load_ref_trajectory(path: str, dtype=None, device=None) -> RefTrajectory:
-    """Load a reftraj_*.json into a RefTrajectory of tensors."""
+    """Load a reftraj_*.json into a RefTrajectory of tensors on `device`
+    (device.resolve_device: cuda unless the caller names a device)."""
+    device = resolve_device(device)
     with open(path, "r") as fh:
         raw = json.load(fh)
     pos = np.stack([np.asarray(raw["pos_x"]), np.asarray(raw["pos_y"])], axis=1)
