@@ -4,8 +4,10 @@ refusals, the launch counters, and a short closed loop of each ported
 controller (nominal, R2NMPC and WMPC over R2NMPC: K1-K5; SNMPC: K1, K3-K6).
 K7 and K8, which no path launches, are held on their own inputs. K4 is also
 held on its own, at ragged and the shipped shapes and with a non-finite
-factor; K1 at the SNMPC shape and at a ragged element count; the kernels'
-own launch-shape queries against the Python plans.
+factor; K1 at the SNMPC shape and at a ragged element count; K2 at ragged
+shapes (both kernel bodies), K6 from a carry dense in every column, K5 and
+the K7 solve with garbage above L's diagonal; the kernels' own launch-shape
+queries against the Python plans.
 
 Marked `cuda`; without a CUDA device every test skips. On a GPU machine:
 
@@ -29,11 +31,12 @@ from tum_control_tpu_torch.api import build_controller, build_simulation
 from tum_control_tpu_torch.config import MPCConfig, SimConfig
 from tum_control_tpu_torch.ops.kernels import build
 from tum_control_tpu_torch.ops.kernels.chol import (
-    MAX_N_CHOL, chol_plan, chol_solve, chol_solve_ref, chol_solve_unblocked,
+    MAX_N_CHOL, chol_plan, chol_solve, chol_solve_plan, chol_solve_ref, chol_solve_unblocked,
     chol_solve_unblocked_ref, cholesky, cholesky_ref, cholesky_unblocked, cholesky_unblocked_ref,
 )
 from tum_control_tpu_torch.ops.kernels.condense import (
-    condense, condense_from, condense_from_ref, condense_mxu, condense_mxu_ref, condense_ref,
+    condense, condense_from, condense_from_ref, condense_mxu, condense_mxu_ref, condense_plan,
+    condense_ref,
 )
 from tum_control_tpu_torch.ops.kernels.ipm_iter import fused_iteration, ipm_plan, iteration_ref
 from tum_control_tpu_torch.ops.kernels.linearize import linearize_plan, linearize_ref
@@ -127,6 +130,110 @@ def test_condense_from_kernel(dev, B, N2, nz, col0):
     _close(e, ep, 2e-5)
     _close(G, Gp, 2e-5)
     assert torch.equal(G[:, 0], G0) and torch.equal(e[:, 0], e0)
+
+
+def _held(got, ref, tol=2e-5):
+    """max |kernel - plain| <= tol * max |plain|, chip_smoke.py's rule."""
+    err = float((got.double() - ref.double()).abs().max())
+    assert err <= tol * float(ref.abs().max()), (err, float(ref.abs().max()))
+
+
+# (B, N, nx, nu): one stage; a few; the shipped shape; nz = 128 (129 columns,
+# 5 blocks a scenario); the generic body at nx = 16 and at nx = 1; 150 stages,
+# whose A, B, xi (52,800 bytes) take the opt-in above 48 KB
+K2_SHAPES = [(1, 1, 8, 2), (3, 5, 8, 2), (128, 38, 8, 2), (7, 64, 8, 2), (5, 10, 16, 3),
+             (2, 12, 1, 1), (2, 150, 8, 2)]
+
+
+@pytest.mark.parametrize("B,N,nx,nu", K2_SHAPES)
+def test_condense_kernel_shapes(dev, B, N, nx, nu):
+    """K2 against its plain version at ragged shapes: e and Gamma each to
+    2e-5 of its max |plain|, stage 0 exactly (d0, 0); one launch."""
+    rng = np.random.default_rng(40 + N)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    A = t(0.97 * np.eye(nx) + rng.normal(0, 0.05, (B, N, nx, nx)))
+    Bm, xi = t(rng.normal(0, 1, (B, N, nx, nu))), t(rng.normal(0, 0.1, (B, N, nx)))
+    d0 = t(rng.normal(0, 1, (B, nx)))
+    build.reset_launches()
+    e, G = condense(A, Bm, xi, d0)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["condense"] == 1
+    ep, Gp = condense_ref(A, Bm, xi, d0)
+    _held(e, ep)
+    _held(G, Gp)
+    assert torch.equal(e[:, 0], d0) and torch.count_nonzero(G[:, 0]) == 0
+
+
+def test_condense_from_kernel_dense_carry(dev):
+    """K6 at SNMPC's tail shape (128 scenarios, 33 stages, nz = 76,
+    col0 = 10) from a carry Gamma0 that is nonzero in every column: no
+    column may be taken for zero. e and Gamma each to 2e-5 of max |plain|."""
+    rng = np.random.default_rng(43)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    B, N2, nz, col0 = 128, 33, 76, 10
+    A = t(0.95 * np.eye(8) + rng.normal(0, 0.03, (B, N2, 8, 8)))
+    Bm, xi = t(rng.normal(0, 1, (B, N2, 8, 2))), t(rng.normal(0, 0.1, (B, N2, 8)))
+    e0, G0 = t(rng.normal(0, 1, (B, 8))), t(rng.normal(0, 1, (B, 8, nz)))
+    assert torch.count_nonzero(G0) == G0.numel()
+    build.reset_launches()
+    e, G = condense_from(A, Bm, xi, e0, G0, col0)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["condense_from"] == 1
+    ep, Gp = condense_from_ref(A, Bm, xi, e0, G0, col0)
+    _held(e, ep)
+    _held(G, Gp)
+    assert torch.equal(G[:, 0], G0) and torch.equal(e[:, 0], e0)
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 76, 80, 128])
+@pytest.mark.parametrize("kernel", ["K5", "K7"])
+def test_chol_solve_reads_only_the_lower_triangle(dev, kernel, n):
+    """K5 and the K7 solve with large garbage (and a NaN) above L's
+    diagonal give the plain version's solution on the clean factor: to 2e-5
+    of max |plain|; one launch each. 130 systems, ragged and whole blocks of
+    16 up to the limit n = 128."""
+    solve, ref = {"K5": (chol_solve, chol_solve_ref),
+                  "K7": (chol_solve_unblocked, chol_solve_unblocked_ref)}[kernel]
+    L = torch.linalg.cholesky(_spd(130, n, 44, dev)).contiguous()
+    b = torch.randn(130, n, device=dev, generator=torch.Generator(dev).manual_seed(2))
+    junk = torch.triu(torch.full_like(L, 1e30), 1)
+    if n > 1:
+        junk[:, 0, n - 1] = float("nan")
+    build.reset_launches()
+    x = solve(L + junk, b)
+    torch.cuda.synchronize()
+    counter = {"K5": "chol_solve", "K7": "chol_solve_unblocked"}[kernel]
+    assert build.LAUNCHES[counter] == 1
+    _held(x, ref(L, b))
+
+
+def test_condense_plan_matches_the_kernel(dev):
+    """csrc/condense.cu's launch shape of K2 / K6 at each (N, nx, nu, nz)
+    equals condense_plan's, and both refuse the same shapes."""
+    lib = build.library("condense")
+    out = (ctypes.c_int * 4)()
+    for N, nx, nu, nz in [(38, 8, 2, 76), (33, 8, 2, 76), (1, 8, 2, 2), (64, 8, 2, 128),
+                          (10, 16, 3, 30), (12, 1, 1, 12), (5, 3, 1, 31), (38, 17, 2, 76),
+                          (0, 8, 2, 0), (38, 8, 0, 0), (300, 16, 2, 600), (200, 16, 2, 400),
+                          (150, 8, 2, 300)]:
+        ok = lib.condense_launch_plan(N, nx, nu, nz, out) == 0
+        try:
+            plan = condense_plan(N, nx, nu, nz)
+        except ValueError:
+            assert not ok, (N, nx, nu, nz)
+            continue
+        assert ok and tuple(out) == tuple(plan), (N, nx, nu, nz, tuple(out), plan)
+
+
+def test_chol_solve_plan_matches_the_kernel(dev):
+    """csrc/chol.cu's solve layout at every n equals chol_solve_plan's, and
+    both refuse n outside 1..MAX_N_CHOL."""
+    lib = build.library("chol")
+    out = (ctypes.c_int * 4)()
+    for n in range(1, MAX_N_CHOL + 1):
+        assert lib.chol_solve_plan(n, out) == 0
+        assert tuple(out) == tuple(chol_solve_plan(n)), n
+    assert lib.chol_solve_plan(0, out) == -1 and lib.chol_solve_plan(MAX_N_CHOL + 1, out) == -1
 
 
 @pytest.mark.parametrize("B,n", CHOL_SHAPES)

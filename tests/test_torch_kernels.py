@@ -3,6 +3,8 @@ the JAX package's references, on the CPU; and the wrappers' dispatch rule.
 
   K1 linearize_ref   vs make_linearize_rollout's jacfwd_path (vmapped)
   K2 condense_ref    vs condense_scan_ref
+  K6 condense_from_ref vs condense_scan_from_ref from a carry dense in every
+                     column
   K3 cholesky_ref    vs jnp.linalg.cholesky
   K5 chol_solve_ref  vs jax.scipy.linalg.cho_solve
   K4 iteration_ref   vs the vmapped iteration_ref (float64), and at float32,
@@ -18,6 +20,8 @@ the JAX package's references, on the CPU; and the wrappers' dispatch rule.
                      wrappers' refusals before any launch
   K4, K1             ipm_plan's and linearize_plan's launch shapes; the K4
                      wrapper's refusals before any launch
+  K2, K6, K5, K7     condense_plan's and chol_solve_plan's launch shapes; the
+                     solve wrappers' refusals before any launch
 
 The CUDA kernels themselves run only on the card (tests/test_torch_cuda.py,
 chip_smoke.py), where they are held against these plain versions.
@@ -39,16 +43,20 @@ from tum_control_tpu.config import MPCConfig as JMPC, SimConfig as JSim
 from tum_control_tpu.ops.pallas_kernels import chol as jchol
 from tum_control_tpu.ops.pallas_kernels import condense as jcondense
 from tum_control_tpu.ops.pallas_kernels import ipm_iter as jipm
-from tum_control_tpu.ops.pallas_kernels.condense import condense_scan_ref
+from tum_control_tpu.ops.pallas_kernels.condense import condense_scan_from_ref, condense_scan_ref
 from tum_control_tpu_torch.api import build_controller
 from tum_control_tpu_torch.config import MPCConfig, SimConfig
 from tum_control_tpu_torch.ops.kernels import build
 from tum_control_tpu_torch.ops.kernels import chol as tchol
 from tum_control_tpu_torch.ops.kernels.chol import (
-    MAX_N_CHOL, CholPlan, chol_plan, chol_solve, chol_solve_ref, chol_solve_unblocked,
-    chol_solve_unblocked_ref, cholesky, cholesky_ref, cholesky_unblocked, cholesky_unblocked_ref,
+    MAX_N_CHOL, CholPlan, SolvePlan, chol_plan, chol_solve, chol_solve_cuda, chol_solve_plan,
+    chol_solve_ref, chol_solve_unblocked, chol_solve_unblocked_cuda, chol_solve_unblocked_ref,
+    cholesky, cholesky_ref, cholesky_unblocked, cholesky_unblocked_ref,
 )
-from tum_control_tpu_torch.ops.kernels.condense import condense, condense_mxu, condense_mxu_ref
+from tum_control_tpu_torch.ops.kernels.condense import (
+    CondensePlan, condense, condense_from, condense_from_ref, condense_mxu, condense_mxu_ref,
+    condense_plan,
+)
 from tum_control_tpu_torch.ops.kernels import ipm_iter as tipm
 from tum_control_tpu_torch.ops.kernels.ipm_iter import (
     IpmPlan, fused_iteration, ipm_plan, masks_of, sigma_of,
@@ -104,7 +112,7 @@ def test_k2_condense_plain_matches_scan_ref():
     assert torch.count_nonzero(G_t[:, 5, :, 5 * nu:]) == 0  # columns past k*nu stay 0
 
 
-@pytest.mark.parametrize("n", [12, 76])
+@pytest.mark.parametrize("n", [1, 12, 17, 76])
 def test_k3_k5_cholesky_and_solve(n):
     """Well-conditioned SPD (cond ~ 1e2) in float64: rtol 1e-11."""
     H = _spd(5, n, seed=12 + n)
@@ -118,6 +126,28 @@ def test_k3_k5_cholesky_and_solve(n):
     np.testing.assert_allclose(x_t.numpy(), np.asarray(x_j), rtol=1e-11, atol=1e-12)
     np.testing.assert_allclose(chol_solve_ref(L_t, T(b)).numpy(), x_t.numpy(), rtol=0, atol=0)
     np.testing.assert_allclose(cholesky_ref(T(H)).numpy(), L_t.numpy(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("B,N2,nx,nu,nz,col0", [(3, 5, 8, 2, 16, 4), (4, 33, 8, 2, 76, 10)])
+def test_k6_condense_from_plain_matches_scan_from_ref_dense_carry(B, N2, nx, nu, nz, col0):
+    """K6's plain version from a carry Gamma0 that is nonzero in every column
+    (the card is held to it with such a carry): the vmapped
+    condense_scan_from_ref in float64, same order, to 1e-12 of the max; the
+    wrapper takes CPU tensors to it and counts no launch."""
+    rng = np.random.default_rng(22)
+    A = 0.95 * np.eye(nx) + rng.normal(0, 0.03, (B, N2, nx, nx))
+    args = (A, rng.normal(0, 1, (B, N2, nx, nu)), rng.normal(0, 0.1, (B, N2, nx)),
+            rng.normal(0, 1, (B, nx)), rng.normal(0, 1, (B, nx, nz)))
+    e_j, G_j = jax.vmap(lambda *a: condense_scan_from_ref(*a, col0))(*args)
+    e_t, G_t = condense_from_ref(*(T(a) for a in args), col0)
+    for got, ref in ((e_t, e_j), (G_t, G_j)):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-12 * np.abs(ref).max())
+    assert np.count_nonzero(np.asarray(G_j)[:, -1]) == B * nx * nz
+    build.reset_launches()
+    e_w, G_w = condense_from(*(T(a) for a in args), col0)
+    assert torch.equal(e_w, e_t) and torch.equal(G_w, G_t)
+    assert build.LAUNCHES["condense_from"] == 0
 
 
 def _k4_inputs(B, nz, ncg, seed, dtype):
@@ -455,3 +485,82 @@ def test_k1_plan(n_el, blocks):
     assert linearize_plan(11264).blocks <= 7 * 132
     with pytest.raises(ValueError):
         linearize_plan(0)
+
+
+@pytest.mark.parametrize("N,nx,nu,nz,plan", [
+    (38, 8, 2, 76, CondensePlan(32, 3, 8, 4 * (38 * 64 + 38 * 16 + 38 * 8))),   # K2, shipped
+    (33, 8, 2, 76, CondensePlan(32, 3, 8, 4 * (33 * 64 + 33 * 16 + 33 * 8))),   # K6, shipped
+    (1, 8, 2, 2, CondensePlan(32, 1, 8, 4 * (64 + 16 + 8))),
+    (64, 8, 2, 128, CondensePlan(32, 5, 8, 4 * (64 * 64 + 64 * 16 + 64 * 8))),  # 129 columns
+    (10, 16, 3, 30, CondensePlan(32, 1, 0, 4 * (10 * 256 + 10 * 48 + 10 * 16))),
+    (12, 1, 1, 12, CondensePlan(32, 1, 0, 4 * (12 + 12 + 12))),
+    (5, 3, 1, 31, CondensePlan(32, 1, 0, 4 * (48 + 16 + 16))),   # arrays padded to 4 floats
+    (4, 3, 1, 32, CondensePlan(32, 2, 0, 4 * (36 + 12 + 12))),   # 33 columns: two blocks
+])
+def test_k2_k6_plan(N, nx, nu, nz, plan):
+    """K2 / K6's launch shape: one thread per column of Gam and one for e,
+    32 a block, so ceil((nz + 1) / 32) blocks per scenario; the unrolled
+    body at nx = 8, the generic one otherwise; shared memory for the
+    scenario's A, B and xi, each padded to a multiple of 16 bytes."""
+    assert condense_plan(N, nx, nu, nz) == plan
+    assert (plan.blocks - 1) * plan.threads < nz + 1 <= plan.blocks * plan.threads
+
+
+@pytest.mark.parametrize("N,nx,nu,nz", [(38, 17, 2, 76), (38, 0, 2, 76), (0, 8, 2, 0),
+                                        (38, 8, 0, 0), (300, 16, 2, 600), (38, 88, 2, 76)])
+def test_k2_k6_plan_refuses(N, nx, nu, nz):
+    """nx outside 1..16 (a column in registers), N < 1, nu < 1, or A, B, xi
+    beyond the 227 KB of shared memory a block may have (300 stages at
+    nx = 16: 330 KB)."""
+    with pytest.raises(ValueError):
+        condense_plan(N, nx, nu, nz)
+
+
+@pytest.mark.parametrize("n,plan", [
+    (1, SolvePlan(16, 20, 128, 4 * (16 * 20 + 16 * 16 + 32))),
+    (17, SolvePlan(32, 36, 128, 4 * (32 * 36 + 32 * 16 + 64))),
+    (76, SolvePlan(80, 84, 128, 32640)),
+    (128, SolvePlan(128, 132, 128, 76800)),
+])
+def test_k5_plan(n, plan):
+    """The solve's layout: L padded to a multiple of 16 rows, ld = npad + 4
+    (= 4 mod 8), 128 threads (all stage L, warp 0 substitutes), shared
+    memory for L, its transposed diagonal blocks, 1 / L_jj and x (above the
+    default 48 KB only at n > 96); n outside 1..128 refused."""
+    assert chol_solve_plan(n) == plan
+    assert plan.ld % 8 == 4 and (plan.smem_bytes > 48 * 1024) == (n > 96)
+    for bad in (0, MAX_N_CHOL + 1):
+        with pytest.raises(ValueError):
+            chol_solve_plan(bad)
+
+
+@pytest.mark.parametrize("solve", [chol_solve_cuda, chol_solve_unblocked_cuda], ids=["K5", "K7"])
+@pytest.mark.parametrize("case", ["n_in_range", "n_above_max", "n_zero", "non_contiguous",
+                                  "cpu_cuda_mix", "float64", "rhs_shape"])
+def test_k5_wrapper_refuses_before_launch(monkeypatch, solve, case):
+    """The solve kernels' entry points take n in 1..MAX_N_CHOL and
+    contiguous float32 tensors that all lie on the card, b of shape (B, n);
+    anything else raises before the kernel's library is loaded, and no
+    launch is counted. Loading the library stops the call here, which
+    shows the launch was reached."""
+
+    class Launched(Exception):
+        pass
+
+    def library(name):
+        raise Launched(name)
+
+    monkeypatch.setattr(tchol.build, "library", library)
+    n = {"n_above_max": MAX_N_CHOL + 1, "n_zero": 0}.get(case, 76)
+    L = torch.tril(T(_spd(2, n, seed=23))).float() if n else torch.zeros(2, 0, 0)
+    b = torch.zeros(2, n)
+    args = {"non_contiguous": (_OnCard(L.transpose(1, 2)), _OnCard(b)),
+            "cpu_cuda_mix": (_OnCard(L), b),
+            "float64": (_OnCard(L), _OnCard(b.double())),
+            "rhs_shape": (_OnCard(L), _OnCard(torch.zeros(2, n + 1)))}.get(case,
+                                                                          (_OnCard(L), _OnCard(b)))
+    build.reset_launches()
+    expected = {"n_in_range": Launched, "float64": TypeError}.get(case, ValueError)
+    with pytest.raises(expected):
+        solve(*args)
+    assert all(v == 0 for v in build.LAUNCHES.values())

@@ -53,48 +53,58 @@
 //
 // K5 replaces chol.py::_solve_kernel_blocked (launched by _solve_tpu_packed
 // and _solve_tpu), the K7 solve chol.py::_solve_kernel. What bounds them: the
-// 2n dependent substitution steps (latency). Design: the block stages L in
-// shared memory with coalesced loads, then one warp runs the substitution
-// with x in registers (trisolve.cuh, shared with K4). The K7 solve multiplies
-// by 1 / L_jj (trisolve.cuh, RECIP), only to keep the TPU kernel's
-// arithmetic: x (1 / d) and x / d differ by one rounding, which no tolerance
-// of the repo can see (2e-5 relative on the card, 1e-12 in float64 on the
-// CPU), so no test tells the K7 solve from K5's kernel.
+// 2n dependent substitution steps (latency); L's lower triangle (~23 KB at
+// n = 76) is read once. Design, one block of SOLVE_THREADS per system:
+//   * L's lower triangle and b arrive in shared memory by cp.async, as the
+//     factorization stages H (16 bytes per lane where n % 4 == 0 and the
+//     pointers are 16-byte aligned, else 4), all copies in flight; padded
+//     to npad = NB ceil(n / NB) rows with an identity tail and
+//     ld = npad + 4. Entries above the diagonal are never read;
+//   * all threads then take the pivots' reciprocals and transpose the
+//     diagonal blocks once (trisolve.cuh::solve_prep), and warp 0 runs the
+//     blocked substitution of trisolve.cuh (shared with K4): per 16-row
+//     block the diagonal block's chain in registers, then the other rows;
+//   * the K7 solve multiplies by 1 / L_jj (trisolve.cuh, RECIP), only to
+//     keep the TPU kernel's arithmetic: x (1 / d) and x / d differ by one
+//     rounding, which no tolerance of the repo can see (2e-5 relative on the
+//     card, 1e-12 in float64 on the CPU).
+// Limits: 1 <= n <= CHOL_MAX_N; shared memory (solve_layout) 32,640 bytes at
+// n = 76, 76,800 at n = 128 (above 48 KB for npad >= 112, opted in there).
+// ops/kernels/chol.py::chol_solve_plan computes the same and refuses n
+// outside the range before any launch.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "common.cuh"
 #include "trisolve.cuh"
 
-constexpr int MAXR = 4;            // substitution rows per lane: n <= 128
-constexpr int NB = 16;             // panel width
 constexpr int CHOL_THREADS = 256;
 constexpr int CHOL_WARPS = CHOL_THREADS / 32;
 constexpr int CHOL_MAX_N = 128;
-constexpr size_t SMEM_DEFAULT = 48 * 1024;
+constexpr int SOLVE_THREADS = 128;
+constexpr int SOLVE_WARPS = SOLVE_THREADS / 32;
 
 // the factorization's shared-memory layout (chol.py::chol_plan)
 __host__ __device__ inline int chol_npad(int n) { return (n + NB - 1) / NB * NB; }
 __host__ __device__ inline int chol_ld(int n) { return chol_npad(n) + 4; }
 static size_t chol_smem(int n) { return sizeof(float) * ((size_t)chol_npad(n) * chol_ld(n) + NB); }
 
-// NB consecutive floats of shared memory (16-byte aligned) to registers and back
-__device__ __forceinline__ void load_row(const float* p, float (&r)[NB]) {
-#pragma unroll
-  for (int q = 0; q < NB / 4; ++q) {
-    const float4 v = reinterpret_cast<const float4*>(p)[q];
-    r[4 * q] = v.x;
-    r[4 * q + 1] = v.y;
-    r[4 * q + 2] = v.z;
-    r[4 * q + 3] = v.w;
-  }
-}
+// the solve's shared-memory layout (chol.py::chol_solve_plan), offsets in
+// floats, each a multiple of 4: L (npad x ld), its transposed diagonal
+// blocks (npad x NB), 1 / L_jj (npad), x (npad)
+struct SolveLayout {
+  int npad, ld, odt, oinv, ox, floats;
+};
 
-__device__ __forceinline__ void store_row(float* p, const float (&r)[NB]) {
-#pragma unroll
-  for (int q = 0; q < NB / 4; ++q)
-    reinterpret_cast<float4*>(p)[q] =
-        make_float4(r[4 * q], r[4 * q + 1], r[4 * q + 2], r[4 * q + 3]);
+__host__ __device__ inline SolveLayout solve_layout(int n) {
+  SolveLayout s;
+  s.npad = chol_npad(n);
+  s.ld = chol_ld(n);
+  s.odt = s.npad * s.ld;
+  s.oinv = s.odt + s.npad * NB;
+  s.ox = s.oinv + s.npad;
+  s.floats = s.ox + s.npad;
+  return s;
 }
 
 // Step 1: warp 0 factors the diagonal block at (k0, k0) in place and leaves
@@ -107,7 +117,7 @@ __device__ __forceinline__ void factor_diag(float* a, int ld, int k0, float* piv
   const int row = lane & (NB - 1);
   float* src = a + (k0 + row) * ld + k0;
   float r[NB];
-  load_row(src, r);
+  load16(src, r);
 #pragma unroll
   for (int j = 0; j < NB; ++j) {
     const float d = __shfl_sync(FULL_MASK, r[j], j);
@@ -128,7 +138,7 @@ __device__ __forceinline__ void factor_diag(float* a, int ld, int k0, float* piv
       if (row >= k) r[k] -= r[j] * lkj;
     }
   }
-  if (lane < NB) store_row(src, r);
+  if (lane < NB) store16(src, r);
 }
 
 // Step 2: the panel's rows below the diagonal block, one row per thread:
@@ -143,7 +153,7 @@ __device__ __forceinline__ void solve_panel_rows(float* a, int ld, int k0, int n
   for (int i = k0 + NB + tid; i < npad; i += CHOL_THREADS) {
     float* ri = a + i * ld + k0;
     float x[NB];
-    load_row(ri, x);
+    load16(ri, x);
 #pragma unroll
     for (int k = 0; k < NB; ++k) {
       const float4* lk = reinterpret_cast<const float4*>(a + (k0 + k) * ld + k0);
@@ -158,7 +168,7 @@ __device__ __forceinline__ void solve_panel_rows(float* a, int ld, int k0, int n
       }
       x[k] = RSQRT ? s * inv[k] : div_rn(s, piv[k], inv[k]);
     }
-    store_row(ri, x);
+    store16(ri, x);
   }
 }
 
@@ -254,38 +264,41 @@ __global__ void __launch_bounds__(CHOL_THREADS)
   }
 }
 
+// vec: n % 4 == 0 and L 16-byte aligned (16-byte copies)
 template <bool RECIP>
-__global__ void chol_solve_kernel(const float* __restrict__ L, const float* __restrict__ b,
-                                  float* __restrict__ x, int n) {
-  extern __shared__ float sl[];
-  const int ld = n + 1;
-  const int tid = threadIdx.x;
-  const float* Lb = L + (long)blockIdx.x * n * n;
-  for (int idx = tid; idx < n * n; idx += blockDim.x) {
-    const int i = idx / n, k = idx - i * n;
-    sl[i * ld + k] = Lb[idx];
-  }
-  __syncthreads();
-  if (tid >= 32) return;
-  float xr[MAXR];
-#pragma unroll
-  for (int r = 0; r < MAXR; ++r) {
-    const int i = r * 32 + tid;
-    xr[r] = (i < n) ? b[(long)blockIdx.x * n + i] : 0.0f;
-  }
-  warp_chol_solve<MAXR, RECIP>(sl, ld, n, xr);
-#pragma unroll
-  for (int r = 0; r < MAXR; ++r) {
-    const int i = r * 32 + tid;
-    if (i < n) x[(long)blockIdx.x * n + i] = xr[r];
-  }
-}
+__global__ void __launch_bounds__(SOLVE_THREADS)
+    chol_solve_kernel(const float* __restrict__ L, const float* __restrict__ b,
+                      float* __restrict__ x, int n, int vec) {
+  extern __shared__ __align__(16) float sm[];
+  const SolveLayout s = solve_layout(n);
+  const int npad = s.npad, ld = s.ld;
+  float* sL = sm;
+  float* sdt = sm + s.odt;
+  float* sinv = sm + s.oinv;
+  float* sx = sm + s.ox;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float* Lb = L + (size_t)blockIdx.x * n * n;
 
-// Opts `fn` in to more than the default 48 KB of dynamic shared memory. At or
-// below it (every n <= 96, so every path) no host API call is made.
-static cudaError_t reserve_smem(const void* fn, size_t smem) {
-  if (smem <= SMEM_DEFAULT) return cudaSuccess;
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // L's lower triangle, each row up to the chunk that holds its diagonal
+  // (n <= 128: one chunk per lane per row), b, the identity tail
+  if (vec) {
+    for (int i = warp; i < n; i += SOLVE_WARPS)
+      if (4 * lane <= i) cp_async16(sL + i * ld + 4 * lane, Lb + (size_t)i * n + 4 * lane);
+  } else {
+    for (int i = warp; i < n; i += SOLVE_WARPS)
+      for (int c = lane; c <= i; c += 32) cp_async4(sL + i * ld + c, Lb + (size_t)i * n + c);
+  }
+  stage_async(sx, b + (size_t)blockIdx.x * n, n, tid, SOLVE_THREADS);
+  for (int i = n + warp; i < npad; i += SOLVE_WARPS)
+    for (int c = lane; c <= i; c += 32) sL[i * ld + c] = (c == i) ? 1.0f : 0.0f;
+  for (int i = n + tid; i < npad; i += SOLVE_THREADS) sx[i] = 0.0f;
+  cp_async_wait_all();
+  __syncthreads();
+  solve_prep<SOLVE_THREADS>(sL, ld, npad, sdt, sinv, tid);
+  __syncthreads();
+  if (warp != 0) return;
+  warp_solve_blocked<RECIP>(sL, ld, npad, sdt, sinv, sx, lane);
+  for (int i = lane; i < n; i += 32) x[(size_t)blockIdx.x * n + i] = sx[i];
 }
 
 template <bool RSQRT>
@@ -319,11 +332,13 @@ template <bool RECIP>
 static int launch_solve(const float* L, const float* b, float* x, int batch, int n,
                         void* stream) {
   if (batch <= 0) return 0;
-  if (n > 32 * MAXR) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)n * (n + 1);
+  if (n < 1 || n > CHOL_MAX_N) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (size_t)solve_layout(n).floats;
   cudaError_t err = reserve_smem((const void*)chol_solve_kernel<RECIP>, smem);
   if (err != cudaSuccess) return (int)err;
-  chol_solve_kernel<RECIP><<<batch, 128, smem, static_cast<cudaStream_t>(stream)>>>(L, b, x, n);
+  const int vec = (n % 4 == 0) && (reinterpret_cast<uintptr_t>(L) % 16 == 0);
+  chol_solve_kernel<RECIP>
+      <<<batch, SOLVE_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(L, b, x, n, vec);
   return (int)cudaGetLastError();
 }
 
@@ -335,4 +350,15 @@ extern "C" int chol_solve_f32(const float* L, const float* b, float* x, int batc
 extern "C" int chol_solve_unblocked_f32(const float* L, const float* b, float* x, int batch,
                                         int n, void* stream) {
   return launch_solve<true>(L, b, x, batch, n, stream);
+}
+
+// The solve's launch shape at n, as ops/kernels/chol.py::chol_solve_plan
+// gives it: plan = {npad, ld, threads, shared bytes}; returns 0, or -1 (plan
+// untouched) outside 1..CHOL_MAX_N.
+extern "C" int chol_solve_plan(int n, int* plan) {
+  if (n < 1 || n > CHOL_MAX_N) return -1;
+  const SolveLayout s = solve_layout(n);
+  const int vals[4] = {s.npad, s.ld, SOLVE_THREADS, (int)(sizeof(float) * s.floats)};
+  for (int i = 0; i < 4; ++i) plan[i] = vals[i];
+  return 0;
 }

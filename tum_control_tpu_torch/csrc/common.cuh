@@ -1,13 +1,16 @@
 // Small helpers shared by the kernels: NaN-propagating min/max (the
 // semantics of jnp.minimum / torch.minimum, unlike fminf which drops NaN), a
-// quotient from a reciprocal (div_rn) and asynchronous copies to shared
-// memory.
+// quotient from a reciprocal (div_rn), asynchronous copies to shared memory,
+// and the opt-in to more than 48 KB of shared memory.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #define FULL_MASK 0xffffffffu
+
+constexpr size_t SMEM_DEFAULT = 48 * 1024;  // dynamic shared memory without an opt-in
 
 __device__ __forceinline__ float pmin(float a, float b) {
   return (a < b || isnan(a)) ? a : b;
@@ -39,3 +42,24 @@ __device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
 }
 
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
+
+// n floats from src (device memory) to dst (shared memory) by the block's
+// `nthreads` threads, all copies in flight: 16 bytes per copy where both are
+// 16-byte aligned and n % 4 == 0, else 4. The caller waits (cp_async_wait_all)
+// and synchronizes before reading dst.
+__device__ __forceinline__ void stage_async(float* dst, const float* src, int n, int tid,
+                                            int nthreads) {
+  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0 &&
+      (n & 3) == 0) {
+    for (int i = 4 * tid; i < n; i += 4 * nthreads) cp_async16(dst + i, src + i);
+  } else {
+    for (int i = tid; i < n; i += nthreads) cp_async4(dst + i, src + i);
+  }
+}
+
+// Opts `fn` in to more than the default 48 KB of dynamic shared memory. At or
+// below it no host API call is made.
+static inline cudaError_t reserve_smem(const void* fn, size_t smem) {
+  if (smem <= SMEM_DEFAULT) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}

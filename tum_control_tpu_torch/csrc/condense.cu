@@ -14,14 +14,37 @@
 // beyond the uncertainty horizon with it; Gam0 is the head's carry and is
 // nonzero in its first col0 columns, so no column may be assumed zero.
 //
-// What bounds K2 and K6: bytes. Per scenario they write (N+1) nx nz floats of Gam
-// (95 KB at N=38, nx=8, nu=2; K6 at N2=33, nz=76: 83 KB), against
-// nx^2 nz FMAs per stage; the recurrence is sequential in the stage. Design:
-// one block per scenario; A, B, xi of the scenario and a double-buffered
-// Gam_k (nx x nz, 2.4 KB) stay in shared memory across all stages, one thread
-// per Gam entry, and each stage's Gam goes to device memory once, in
-// coalesced rows. One kernel body serves both: FROM selects the initial carry
-// (loaded for K6, (d0, 0) for K2), col0 is 0 for K2.
+// What bounds K2 and K6: bytes. Per scenario they write (N+1) nx nz floats of
+// Gam (95 KB at N=38, nx=8, nu=2; K6 at N2=33, nz=76: 83 KB), against
+// nx^2 (nz+1) FMAs per stage; the recurrence is sequential in the stage.
+// Design: the columns of Gam are independent, Gam_{k+1}[:, z] =
+// A_k Gam_k[:, z] (+ B_k's column where z lies in stage k's block), and e is
+// one more column of the same recurrence with xi_k added. So one thread owns
+// one column and keeps its nx values in registers: no stage needs a barrier
+// or a shuffle, and no thread runs a second chain. COND_THREADS = 32
+// columns (one warp) per block, ceil((nz + 1) / 32) blocks per scenario (3
+// at nz = 76: 384 one-warp blocks, at most one warp per scheduler of the
+// 132 SMs); each block stages its scenario's A, B and xi in shared memory
+// by cp.async, all copies in flight while the threads load their carry
+// (13.4 KB at the nominal shape, read again from L2 by each block of the
+// scenario). A_k's rows are broadcast float4 reads, the next stage's issued
+// before this stage's products; nx is a template parameter (8, the shipped
+// width; a generic body takes 1 <= nx <= 16), so the nx x nx products
+// unroll into two accumulators per row and no index is divided. e adds
+// xi_k and the column of stage k's block its B (a column takes B once: that
+// column of B is read ahead into registers) by selects, not branches. Each
+// stage's rows go out as one predicated store per row, the same path in
+// every lane, the warp's 32 columns side by side. A stage is ~125
+// instructions of one warp's serial issue. Measured slower (PERF.md,
+// tools/kernel_breakdown.py): a per-row branch between Gam and e (2x), a
+// shared-memory tile written out as float4s, two lanes per column with a
+// shuffle exchange (640 warps: two share a scheduler on some SMs), two
+// columns per lane sharing A_k's reads. No column is skipped: K6's carry
+// may be dense in every column. FROM selects the initial carry (loaded for
+// K6, (d0, 0) for K2), col0 is 0 for K2. cond_layout / condense_launch_plan
+// give the launch shape (ops/kernels/condense.py::condense_plan computes
+// the same); shared memory above the default 48 KB is opted in only where a
+// shape needs it.
 //
 // K8 replaces ops/pallas_kernels/condense.py::_make_mxu_kernel (launched by
 // _condense_tpu_mxu), which no caller of the JAX package reaches: the same
@@ -39,58 +62,184 @@
 // floats written per scenario.
 #include <cuda_runtime.h>
 
-template <bool FROM>
-__global__ void condense_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
-                                const float* __restrict__ xi, const float* __restrict__ e0,
-                                const float* __restrict__ G0, float* __restrict__ e_out,
-                                float* __restrict__ gam_out, int N, int nx, int nu, int nz,
-                                int col0) {
-  extern __shared__ float sm[];
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, bs = blockDim.x;
-  float* sA = sm;                    // N nx nx
-  float* sB = sA + N * nx * nx;      // N nx nu
-  float* sxi = sB + N * nx * nu;     // N nx
-  float* g[2] = {sxi + N * nx, sxi + N * nx + nx * nz};
-  float* e[2] = {g[1] + nx * nz, g[1] + nx * nz + nx};
+#include "common.cuh"
 
-  const float* Ab = A + (long)b * N * nx * nx;
-  const float* Bb = Bm + (long)b * N * nx * nu;
-  const float* xib = xi + (long)b * N * nx;
-  for (int i = tid; i < N * nx * nx; i += bs) sA[i] = Ab[i];
-  for (int i = tid; i < N * nx * nu; i += bs) sB[i] = Bb[i];
-  for (int i = tid; i < N * nx; i += bs) sxi[i] = xib[i];
-  for (int i = tid; i < nx * nz; i += bs) g[0][i] = FROM ? G0[(long)b * nx * nz + i] : 0.0f;
-  for (int i = tid; i < nx; i += bs) e[0][i] = e0[(long)b * nx + i];
-  __syncthreads();
+constexpr int COND_MAX_NX = 16;       // a column's nx values in one thread's registers
+constexpr int COND_THREADS = 32;      // columns (threads) per block
+constexpr int COND_FAST_NX = 8;       // the nx of the unrolled body
+constexpr size_t SMEM_MAX = 232448;   // shared memory a block may have on Hopper
 
-  float* eo = e_out + (long)b * (N + 1) * nx;
-  float* go = gam_out + (long)b * (N + 1) * nx * nz;
-  for (int k = 0; k <= N; ++k) {
-    const float* gc = g[k & 1];
-    const float* ec = e[k & 1];
-    for (int i = tid; i < nx * nz; i += bs) go[(long)k * nx * nz + i] = gc[i];
-    for (int i = tid; i < nx; i += bs) eo[k * nx + i] = ec[i];
-    if (k == N) break;
-    float* gn = g[(k + 1) & 1];
-    float* en = e[(k + 1) & 1];
-    const float* Ak = sA + k * nx * nx;
-    const float* Bk = sB + k * nx * nu;
-    for (int idx = tid; idx < nx * nz; idx += bs) {
-      const int i = idx / nz, z = idx - i * nz;
-      float acc = 0.0f;
-      for (int m = 0; m < nx; ++m) acc += Ak[i * nx + m] * gc[m * nz + z];
-      const int q = z - col0 - k * nu;
-      if (q >= 0 && q < nu) acc += Bk[i * nu + q];
-      gn[idx] = acc;
+// K2 / K6 launch shape at (N, nx, nu, nz): blocks per scenario (nz + 1
+// columns), and the shared-memory offsets of B and xi after A (floats,
+// multiples of 4)
+struct CondLayout {
+  int blocks, oB, oxi, floats;
+};
+
+__host__ __device__ inline CondLayout cond_layout(int N, int nx, int nu, int nz) {
+  CondLayout s;
+  s.blocks = (nz + COND_THREADS) / COND_THREADS;
+  s.oB = (N * nx * nx + 3) / 4 * 4;
+  s.oxi = s.oB + (N * nx * nu + 3) / 4 * 4;
+  s.floats = s.oxi + (N * nx + 3) / 4 * 4;
+  return s;
+}
+
+static bool cond_supported(int N, int nx, int nu, int nz) {
+  return N >= 1 && nx >= 1 && nx <= COND_MAX_NX && nu >= 1 && nz >= 0 &&
+         sizeof(float) * (size_t)cond_layout(N, nx, nu, nz).floats <= SMEM_MAX;
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// gn = A_k g for one column: NX > 0 from A_k's rows as float4s (a, NX^2 / 4
+// of them, in registers), NX == 0 (any nx <= COND_MAX_NX) from shared memory
+template <int NX>
+__device__ __forceinline__ void stage_product(const float4* a, const float* Ak, int nx,
+                                              const float* g, float* gn) {
+  if constexpr (NX > 0) {
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll
+      for (int q = 0; q < NX / 4; ++q) {
+        const float4 v = a[i * (NX / 4) + q];
+        a0 = fmaf(v.x, g[4 * q], a0);
+        a1 = fmaf(v.y, g[4 * q + 1], a1);
+        a0 = fmaf(v.z, g[4 * q + 2], a0);
+        a1 = fmaf(v.w, g[4 * q + 3], a1);
+      }
+      gn[i] = a0 + a1;
     }
-    for (int i = tid; i < nx; i += bs) {
-      float acc = 0.0f;
-      for (int m = 0; m < nx; ++m) acc += Ak[i * nx + m] * ec[m];
-      en[i] = acc + sxi[k * nx + i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < COND_MAX_NX; ++i) {
+      float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll
+      for (int m = 0; m < COND_MAX_NX; m += 2) {
+        if (i < nx && m < nx) a0 = fmaf(Ak[i * nx + m], g[m], a0);
+        if (i < nx && m + 1 < nx) a1 = fmaf(Ak[i * nx + m + 1], g[m + 1], a1);
+      }
+      gn[i] = a0 + a1;
     }
-    __syncthreads();
   }
+}
+
+// NX: nx as a template parameter (8), or 0 for any nx <= 16
+template <int NX, bool FROM>
+__global__ void __launch_bounds__(COND_THREADS)
+    condense_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
+                    const float* __restrict__ xi, const float* __restrict__ e0,
+                    const float* __restrict__ G0, float* __restrict__ e_out,
+                    float* __restrict__ gam_out, int N, int nx_, int nu, int nz, int col0) {
+  constexpr int R = NX > 0 ? NX : COND_MAX_NX;   // registers per column
+  constexpr int NQ = NX > 0 ? NX * NX / 4 : 1;   // float4s of one A_k
+  constexpr int NV = NX > 0 ? NX / 4 : 1;        // float4s of one xi_k
+  const int nx = NX > 0 ? NX : nx_;
+  extern __shared__ __align__(16) float sm[];
+  const CondLayout s = cond_layout(N, nx, nu, nz);
+  const float* sA = sm;
+  const float* sB = sm + s.oB;
+  const float* sxi = sm + s.oxi;
+  const int b = blockIdx.x / s.blocks, t = threadIdx.x;
+  const int z = (blockIdx.x - b * s.blocks) * COND_THREADS + t;
+
+  // the scenario's A, B, xi in flight, while the thread loads its column:
+  // Gam's column z < nz, e at z = nz, nothing past it
+  stage_async(sm, A + (size_t)b * N * nx * nx, N * nx * nx, t, COND_THREADS);
+  stage_async(sm + s.oB, Bm + (size_t)b * N * nx * nu, N * nx * nu, t, COND_THREADS);
+  stage_async(sm + s.oxi, xi + (size_t)b * N * nx, N * nx, t, COND_THREADS);
+  const bool is_g = z < nz, is_e = z == nz, out = is_g || is_e;
+  // the one stage whose B lands in this column (kz, B's column qz), or none
+  int kz = -1, qz = 0;
+  if (is_g && z >= col0 && z < col0 + N * nu) {
+    kz = (z - col0) / nu;
+    qz = z - col0 - kz * nu;
+  }
+  float g[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    float v = 0.0f;
+    if (i < nx) {
+      if (is_e) v = e0[(size_t)b * nx + i];
+      else if (FROM && is_g) v = G0[((size_t)b * nx + i) * nz + z];
+    }
+    g[i] = v;
+  }
+  // stage k of the column: Gam's column z (rows nz apart, the warp's 32
+  // columns side by side) or e (rows adjacent); one predicated store per
+  // row, the same path in every lane
+  const int stride = is_e ? 1 : nz;
+  float* col = is_e ? e_out + (size_t)b * (N + 1) * nx
+                    : gam_out + (size_t)b * (N + 1) * nx * nz + (is_g ? z : 0);
+  auto store = [&](int k) {
+    float* p = col + (size_t)k * nx * stride;
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      if (i < nx && out) p[i * stride] = g[i];
+  };
+  store(0);
+  cp_async_wait_all();
+  __syncthreads();
+  float bz[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) bz[i] = (kz >= 0 && i < nx) ? sB[(kz * nx + i) * nu + qz] : 0.0f;
+
+  // stage k from A_k, xi_k in cur / xc, with A_{k+1}, xi_{k+1} loaded into
+  // nxt / xn meanwhile (broadcast reads); the stages alternate the two
+  // register sets, so none is copied
+  auto step = [&](int k, const float4 (&cur)[NQ], float4 (&nxt)[NQ], const float4 (&xc)[NV],
+                  float4 (&xn)[NV]) {
+    if constexpr (NX > 0) {
+      const int kn = min(k + 1, N - 1);
+      const float4* An = reinterpret_cast<const float4*>(sA + kn * NX * NX);
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) nxt[q] = An[q];
+#pragma unroll
+      for (int q = 0; q < NV; ++q) xn[q] = reinterpret_cast<const float4*>(sxi + kn * NX)[q];
+    }
+    float gn[R];
+    stage_product<NX>(cur, sA + k * nx * nx, nx, g, gn);
+    const bool take = is_e || k == kz;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      if (i < nx) {
+        float xk;
+        if constexpr (NX > 0) xk = lane_of(xc[i / 4], i % 4);
+        else xk = sxi[k * nx + i];
+        const float add = is_e ? xk : bz[i];
+        if (take) gn[i] += add;
+      }
+      g[i] = gn[i];
+    }
+    store(k + 1);
+  };
+  float4 a0[NQ], a1[NQ], x0[NV], x1[NV];
+  if constexpr (NX > 0) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) a0[q] = reinterpret_cast<const float4*>(sA)[q];
+#pragma unroll
+    for (int q = 0; q < NV; ++q) x0[q] = reinterpret_cast<const float4*>(sxi)[q];
+  }
+  for (int k = 0; k < N; k += 2) {
+    step(k, a0, a1, x0, x1);
+    if (k + 1 < N) step(k + 1, a1, a0, x1, x0);
+  }
+}
+
+template <int NX, bool FROM>
+static int launch_nx(const CondLayout& s, size_t smem, const float* A, const float* Bm,
+                     const float* xi, const float* e0, const float* G0, float* e_out,
+                     float* gam_out, int batch, int N, int nx, int nu, int nz, int col0,
+                     void* stream) {
+  const cudaError_t err = reserve_smem((const void*)condense_kernel<NX, FROM>, smem);
+  if (err != cudaSuccess) return (int)err;
+  condense_kernel<NX, FROM>
+      <<<batch * s.blocks, COND_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+          A, Bm, xi, e0, G0, e_out, gam_out, N, nx, nu, nz, col0);
+  return (int)cudaGetLastError();
 }
 
 template <bool FROM>
@@ -98,17 +247,15 @@ static int launch(const float* A, const float* Bm, const float* xi, const float*
                   const float* G0, float* e_out, float* gam_out, int batch, int N, int nx,
                   int nu, int nz, int col0, void* stream) {
   if (batch <= 0) return 0;
-  const size_t smem =
-      sizeof(float) * ((size_t)N * nx * nx + (size_t)N * nx * nu + (size_t)N * nx +
-                       2 * (size_t)nx * nz + 2 * (size_t)nx);
-  cudaError_t err = cudaFuncSetAttribute(condense_kernel<FROM>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int threads = ((nx * nz + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  condense_kernel<FROM><<<batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      A, Bm, xi, e0, G0, e_out, gam_out, N, nx, nu, nz, col0);
-  return (int)cudaGetLastError();
+  if (!cond_supported(N, nx, nu, nz)) return (int)cudaErrorInvalidValue;
+  const CondLayout s = cond_layout(N, nx, nu, nz);
+  if ((long long)batch * s.blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (size_t)s.floats;
+  return nx == COND_FAST_NX ? launch_nx<COND_FAST_NX, FROM>(s, smem, A, Bm, xi, e0, G0, e_out,
+                                                            gam_out, batch, N, nx, nu, nz,
+                                                            col0, stream)
+                            : launch_nx<0, FROM>(s, smem, A, Bm, xi, e0, G0, e_out, gam_out,
+                                                 batch, N, nx, nu, nz, col0, stream);
 }
 
 // K2: (e_0, Gam_0) = (d0, 0), nz = N nu.
@@ -128,7 +275,19 @@ extern "C" int condense_from_f32(const float* A, const float* Bm, const float* x
   return launch<true>(A, Bm, xi, e0, G0, e_out, gam_out, batch, N2, nx, nu, nz, col0, stream);
 }
 
-constexpr int AUG_MAX_NX = 16;  // register carry per column thread
+// K2 / K6's launch shape at (N, nx, nu, nz), as
+// ops/kernels/condense.py::condense_plan gives it: plan = {threads per block,
+// blocks per scenario, nx of the unrolled body (8) or 0 (the generic one),
+// shared bytes}; returns 0, or -1 (plan untouched) where the kernel refuses
+// the shape.
+extern "C" int condense_launch_plan(int N, int nx, int nu, int nz, int* plan) {
+  if (!cond_supported(N, nx, nu, nz)) return -1;
+  const CondLayout s = cond_layout(N, nx, nu, nz);
+  const int vals[4] = {COND_THREADS, s.blocks, nx == COND_FAST_NX ? nx : 0,
+                       (int)(sizeof(float) * s.floats)};
+  for (int i = 0; i < 4; ++i) plan[i] = vals[i];
+  return 0;
+}
 
 __global__ void condense_aug_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
                                     const float* __restrict__ xi, const float* __restrict__ d0,
@@ -150,28 +309,28 @@ __global__ void condense_aug_kernel(const float* __restrict__ A, const float* __
   if (z >= w) return;
 
   // thread z owns column z of the carry: Gam's columns, then e at z = nz
-  float g[AUG_MAX_NX];
+  float g[COND_MAX_NX];
 #pragma unroll
-  for (int i = 0; i < AUG_MAX_NX; ++i) g[i] = (i < nx && z == nz) ? d0[(long)b * nx + i] : 0.0f;
+  for (int i = 0; i < COND_MAX_NX; ++i) g[i] = (i < nx && z == nz) ? d0[(long)b * nx + i] : 0.0f;
   float* ob = out + (long)b * (N + 1) * nx * w;
 #pragma unroll
-  for (int i = 0; i < AUG_MAX_NX; ++i)
+  for (int i = 0; i < COND_MAX_NX; ++i)
     if (i < nx) ob[i * w + z] = g[i];
   for (int k = 0; k < N; ++k) {
     const float* Ak = sA + k * nx * nx;
-    float gn[AUG_MAX_NX];
+    float gn[COND_MAX_NX];
 #pragma unroll
-    for (int i = 0; i < AUG_MAX_NX; ++i) {
+    for (int i = 0; i < COND_MAX_NX; ++i) {
       float acc = 0.0f;
 #pragma unroll
-      for (int m = 0; m < AUG_MAX_NX; ++m)
+      for (int m = 0; m < COND_MAX_NX; ++m)
         if (i < nx && m < nx) acc += Ak[i * nx + m] * g[m];
       gn[i] = acc;
     }
     const int q = z - k * nu;
     float* o = ob + (long)(k + 1) * nx * w;
 #pragma unroll
-    for (int i = 0; i < AUG_MAX_NX; ++i) {
+    for (int i = 0; i < COND_MAX_NX; ++i) {
       if (i < nx) {
         if (q >= 0 && q < nu) gn[i] = sB[(k * nx + i) * nu + q];   // assigned, not added
         if (z == nz) gn[i] += sxi[k * nx + i];
@@ -187,10 +346,9 @@ __global__ void condense_aug_kernel(const float* __restrict__ A, const float* __
 extern "C" int condense_aug_f32(const float* A, const float* Bm, const float* xi, const float* d0,
                                 float* out, int batch, int N, int nx, int nu, void* stream) {
   if (batch <= 0) return 0;
-  if (nx > AUG_MAX_NX || N * nu + 1 > 1024) return (int)cudaErrorInvalidValue;
+  if (nx > COND_MAX_NX || N * nu + 1 > 1024) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * ((size_t)N * nx * nx + (size_t)N * nx * nu + (size_t)N * nx);
-  cudaError_t err = cudaFuncSetAttribute(condense_aug_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err = reserve_smem((const void*)condense_aug_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int threads = ((N * nu + 1 + 31) / 32) * 32;
   condense_aug_kernel<<<batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(

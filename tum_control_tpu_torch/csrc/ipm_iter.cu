@@ -23,8 +23,8 @@
 //     of 8 consecutive rows hit distinct banks); L padded to npad = 16
 //     ceil(nz / 16) rows with an identity tail, G's columns nz..npad-1 zero,
 //     so no inner loop masks a ragged edge;
-//   * the substitution (K4's own; K5 and K7 keep trisolve.cuh) is blocked
-//     in 16-row blocks and run by warp 0 with x in shared memory: every
+//   * the substitution (trisolve.cuh, shared with K5 and the K7 solve) is
+//     blocked in 16-row blocks and run by warp 0 with x in shared memory: every
 //     lane solves the 16 x 16 diagonal block redundantly in registers (no
 //     shuffle on the chain; the block's columns are broadcast float4 reads
 //     issued a step ahead, from a transposed copy made once per launch),
@@ -52,11 +52,10 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "trisolve.cuh"
 
-constexpr int NB = 16;               // substitution block
 constexpr int K4_MAX_NZ = 128;
 constexpr int K4_THREADS = 256;      // one per row of the constraint system: nc <= 256
-constexpr size_t SMEM_DEFAULT = 48 * 1024;
 constexpr int MAXR = K4_MAX_NZ / 32;  // rows of rw per lane in warp 0
 
 // Shared-memory layout and thread shape at (nz, ncg); offsets in floats,
@@ -89,103 +88,6 @@ __host__ __device__ inline K4Layout k4_layout(int nz, int ncg) {
 // Shared memory stays within a block's 227 KB: 150,272 bytes at nz = 128, nc = 256.
 static bool k4_supported(int nz, int ncg) {
   return nz >= 1 && nz <= K4_MAX_NZ && ncg >= 0 && ncg + nz <= K4_THREADS;
-}
-
-// 16 consecutive floats of shared memory (16-byte aligned) to registers and back
-__device__ __forceinline__ void load16(const float* p, float (&r)[NB]) {
-#pragma unroll
-  for (int q = 0; q < NB / 4; ++q) {
-    const float4 v = reinterpret_cast<const float4*>(p)[q];
-    r[4 * q] = v.x;
-    r[4 * q + 1] = v.y;
-    r[4 * q + 2] = v.z;
-    r[4 * q + 3] = v.w;
-  }
-}
-
-__device__ __forceinline__ void store16(float* p, const float (&r)[NB]) {
-#pragma unroll
-  for (int q = 0; q < NB / 4; ++q)
-    reinterpret_cast<float4*>(p)[q] = make_float4(r[4 * q], r[4 * q + 1], r[4 * q + 2], r[4 * q + 3]);
-}
-
-// L L^T x = b by one warp; b in x (shared memory, npad entries) on entry, the
-// solution on exit. L row-major with leading dimension ld, npad rows; dt
-// holds each 16 x 16 diagonal block of L transposed (block k's column j at
-// dt + 256 k + 16 j), inv[j] = 1 / L_jj. Per block of 16 rows every lane
-// runs the block's chain in registers (the same values in all lanes), each
-// step's column (forward) or row (backward) loaded as four float4s while the
-// step before it computes; lane 0 stores the block; then each lane updates
-// the rows it owns outside the block.
-__device__ __forceinline__ void warp_solve_blocked(const float* __restrict__ L, int ld, int npad,
-                                                   const float* __restrict__ dt,
-                                                   const float* __restrict__ inv, float* x,
-                                                   int lane) {
-  // forward: L y = b
-  for (int k0 = 0; k0 < npad; k0 += NB) {
-    const float* Dk = dt + k0 * NB;
-    float v[NB], iv[NB], c[NB];
-    load16(x + k0, v);
-    load16(inv + k0, iv);
-    load16(Dk, c);
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      float cn[NB];
-      if (j + 1 < NB) load16(Dk + (j + 1) * NB, cn);
-      v[j] = div_rn(v[j], c[j], iv[j]);
-#pragma unroll
-      for (int i = j + 1; i < NB; ++i) v[i] = fmaf(-c[i], v[j], v[i]);
-      if (j + 1 < NB) {
-#pragma unroll
-        for (int i = 0; i < NB; ++i) c[i] = cn[i];
-      }
-    }
-    if (lane == 0) store16(x + k0, v);
-    for (int i = k0 + NB + lane; i < npad; i += 32) {
-      float l[NB];
-      load16(L + i * ld + k0, l);
-      float a0 = 0.0f, a1 = 0.0f;
-#pragma unroll
-      for (int j = 0; j < NB; j += 2) {
-        a0 = fmaf(l[j], v[j], a0);
-        a1 = fmaf(l[j + 1], v[j + 1], a1);
-      }
-      x[i] -= a0 + a1;
-    }
-    __syncwarp();
-  }
-  // backward: L^T x = y
-  for (int k0 = npad - NB; k0 >= 0; k0 -= NB) {
-    const float* Lk = L + k0 * ld + k0;
-    float v[NB], iv[NB], r[NB];
-    load16(x + k0, v);
-    load16(inv + k0, iv);
-    load16(Lk + (NB - 1) * ld, r);
-#pragma unroll
-    for (int j = NB - 1; j >= 0; --j) {
-      float rn[NB];
-      if (j > 0) load16(Lk + (j - 1) * ld, rn);
-      v[j] = div_rn(v[j], r[j], iv[j]);
-#pragma unroll
-      for (int i = 0; i < j; ++i) v[i] = fmaf(-r[i], v[j], v[i]);
-      if (j > 0) {
-#pragma unroll
-        for (int i = 0; i < NB; ++i) r[i] = rn[i];
-      }
-    }
-    if (lane == 0) store16(x + k0, v);
-    for (int i = lane; i < k0; i += 32) {
-      const float* Lc = L + k0 * ld + i;  // column i of the block's rows
-      float a0 = 0.0f, a1 = 0.0f;
-#pragma unroll
-      for (int j = 0; j < NB; j += 2) {
-        a0 = fmaf(Lc[j * ld], v[j], a0);
-        a1 = fmaf(Lc[(j + 1) * ld], v[j + 1], a1);
-      }
-      x[i] -= a0 + a1;
-    }
-    __syncwarp();
-  }
 }
 
 // (sum of a, NaN-propagating min of m) over the block, one barrier; every
@@ -320,11 +222,7 @@ __global__ void __launch_bounds__(K4_THREADS, 1) ipm_iter_kernel(
   __syncthreads();  // sL, sG staged
   // the pivots' reciprocals and the transposed diagonal blocks, for warp 0's
   // substitutions (ordered before them by the first barrier of the loop)
-  for (int j = tid; j < npad; j += K4_THREADS) sinv[j] = 1.0f / sL[j * ld + j];
-  for (int idx = tid; idx < npad * NB; idx += K4_THREADS) {
-    const int k0 = idx / (NB * NB) * NB, j = idx / NB % NB, i = idx % NB;
-    sdt[idx] = (i >= j) ? sL[(k0 + i) * ld + k0 + j] : 0.0f;
-  }
+  solve_prep<K4_THREADS>(sL, ld, npad, sdt, sinv, tid);
 
   // this thread's share of G^T y: a float4 of columns q over one slice of rows
   const int q = tid % s.nq, part = tid / s.nq;
@@ -461,7 +359,7 @@ __global__ void __launch_bounds__(K4_THREADS, 1) ipm_iter_kernel(
 // above the default 48 KB: one cudaFuncSetAttribute per device and new
 // largest size in the process, none at or below 48 KB.
 constexpr int K4_MAX_DEVICES = 64;
-static cudaError_t reserve_smem(size_t smem) {
+static cudaError_t reserve_k4_smem(size_t smem) {
   static size_t reserved[K4_MAX_DEVICES] = {};
   if (smem <= SMEM_DEFAULT) return cudaSuccess;
   int dev = 0;
@@ -483,7 +381,7 @@ extern "C" int ipm_iteration_f32(const float* const* in, float* const* out,
   if (!k4_supported(nz, ncg)) return (int)cudaErrorInvalidValue;
   const K4Layout s = k4_layout(nz, ncg);
   const size_t smem = sizeof(float) * (size_t)s.floats;
-  const cudaError_t err = reserve_smem(smem);
+  const cudaError_t err = reserve_k4_smem(smem);
   if (err != cudaSuccess) return (int)err;
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(in[0]) | reinterpret_cast<uintptr_t>(in[1]);
   const int vec = (nz % 4 == 0) && (ptrs % 16 == 0);

@@ -43,11 +43,13 @@ SIGNATURES = {
                   "linearize_launch_plan": [_I, _P]},
     "condense": {"condense_f32": [_P] * 6 + [_I] * 4 + [_P],
                  "condense_from_f32": [_P] * 7 + [_I] * 6 + [_P],
-                 "condense_aug_f32": [_P] * 5 + [_I] * 4 + [_P]},
+                 "condense_aug_f32": [_P] * 5 + [_I] * 4 + [_P],
+                 "condense_launch_plan": [_I] * 4 + [_P]},
     "chol": {"cholesky_f32": [_P, _P, _I, _I, _P], "chol_solve_f32": [_P, _P, _P, _I, _I, _P],
              "cholesky_unblocked_f32": [_P, _P, _I, _I, _P],
              "cholesky_smem_bytes": [_I],
-             "chol_solve_unblocked_f32": [_P, _P, _P, _I, _I, _P]},
+             "chol_solve_unblocked_f32": [_P, _P, _P, _I, _I, _P],
+             "chol_solve_plan": [_I, _P]},
     "ipm_iter": {"ipm_iteration_f32": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
                  "ipm_iteration_plan": [_I, _I, _P]},
 }
@@ -141,14 +143,20 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     """Dispatch rule shared by every wrapper: False for CPU tensors (plain
     PyTorch version), True for CUDA float32 tensors (the kernel); anything
     else raises."""
-    devs = {t.device.type for t in tensors}
-    if devs == {"cpu"}:
+    if {t.device.type for t in tensors} == {"cpu"}:
         return False
+    check_kernel_inputs(*tensors)
+    return True
+
+
+def check_kernel_inputs(*tensors: torch.Tensor):
+    """Raises unless every tensor is a contiguous CUDA float32 tensor, what
+    a kernel's entry point takes."""
+    devs = {t.device.type for t in tensors}
     if devs != {"cuda"}:
-        raise ValueError(f"kernel inputs must all lie on the CPU or all on CUDA, got {devs}")
+        raise ValueError(f"kernel inputs must all lie on CUDA, got {devs}")
     for t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"the CUDA kernels take float32 tensors, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("the CUDA kernels take contiguous tensors")
-    return True

@@ -24,7 +24,9 @@ by rsqrt(a_jj), the solve multiplies by 1 / L_jj:
 
 K3 and K7 share one kernel body (csrc/chol.cu::chol_factor_kernel, a
 blocked factorization in 16-wide panels); `chol_plan` gives its layout and
-refuses what it does not take, before any launch.
+refuses what it does not take, before any launch. K5 and the K7 solve share
+another (chol_solve_kernel, the blocked substitution of csrc/trisolve.cuh
+that K4 runs too); `chol_solve_plan` does the same for it.
 
 `torch.linalg.cholesky_ex` / `torch.cholesky_solve` compute the same
 functions; they are timing yardsticks only and are not used here.
@@ -37,9 +39,9 @@ import torch
 
 from tum_control_tpu_torch.ops.kernels import build
 
-MAX_N_SOLVE = 128  # csrc/trisolve.cuh holds at most 4 rows per lane
-MAX_N_CHOL = 128   # csrc/chol.cu::CHOL_MAX_N, the solve's limit
-PANEL = 16         # csrc/chol.cu::NB
+MAX_N_CHOL = 128     # csrc/chol.cu::CHOL_MAX_N, the factorization's and the solve's limit
+PANEL = 16           # csrc/trisolve.cuh::NB: K3's panel, the substitution's block
+SOLVE_THREADS = 128  # csrc/chol.cu::SOLVE_THREADS
 
 
 class CholPlan(NamedTuple):
@@ -62,6 +64,27 @@ def chol_plan(n: int) -> CholPlan:
     npad = -(-n // PANEL) * PANEL
     ld = npad + 4   # = 4 mod 8: 16-byte reads of 8 consecutive rows hit distinct banks
     return CholPlan(npad, ld, npad // PANEL, 4 * (npad * ld + PANEL))
+
+
+class SolvePlan(NamedTuple):
+    """Layout of the solve kernel (K5, the K7 solve) at n (csrc/chol.cu's
+    `solve_layout`): L padded to `npad` rows with an identity tail,
+    row-major in shared memory with leading dimension `ld`, `threads` per
+    block (all stage L, warp 0 substitutes), `smem_bytes` of shared memory
+    (L, its transposed diagonal blocks, 1 / L_jj and x)."""
+    npad: int
+    ld: int
+    threads: int
+    smem_bytes: int
+
+
+def chol_solve_plan(n: int) -> SolvePlan:
+    """The solve kernel's layout at n; raises for n outside 1..MAX_N_CHOL."""
+    if not 1 <= n <= MAX_N_CHOL:
+        raise ValueError(f"the solve kernel takes 1 <= n <= {MAX_N_CHOL}, got n = {n}")
+    npad = -(-n // PANEL) * PANEL
+    ld = npad + 4
+    return SolvePlan(npad, ld, SOLVE_THREADS, 4 * (npad * ld + npad * PANEL + 2 * npad))
 
 
 def cholesky_ref(H):
@@ -100,6 +123,7 @@ def _factor_cuda(H, fn_name, counter):
     """Launches csrc/chol.cu's factorization (K3 or K7) on a CUDA float32
     (B, n, n) tensor; n is checked against `chol_plan` before the library
     is loaded."""
+    build.check_kernel_inputs(H)
     _check_square(H)
     B, n, _ = H.shape
     chol_plan(n)
@@ -116,20 +140,27 @@ def cholesky_cuda(H):
     return _factor_cuda(H, "cholesky_f32", "cholesky")
 
 
-def chol_solve_cuda(L, b):
+def _solve_cuda(L, b, fn_name, counter):
+    """Launches csrc/chol.cu's solve (K5 or the K7 solve) on contiguous CUDA
+    float32 L (B, n, n) and b (B, n); the inputs and n (`chol_solve_plan`)
+    are checked before the library is loaded."""
+    build.check_kernel_inputs(L, b)
     _check_square(L)
     B, n, _ = L.shape
-    if b.shape != (B, n):
-        raise ValueError(f"chol_solve: rhs {tuple(b.shape)} does not match L {tuple(L.shape)}")
-    if n > MAX_N_SOLVE:
-        raise ValueError(f"chol_solve kernel supports n <= {MAX_N_SOLVE}, got {n}")
+    if tuple(b.shape) != (B, n):
+        raise ValueError(f"{fn_name}: rhs {tuple(b.shape)} does not match L {tuple(L.shape)}")
+    chol_solve_plan(n)
+    fn = getattr(build.library("chol"), fn_name)
     x = torch.empty_like(b)
-    fn = build.library("chol").chol_solve_f32
     with torch.cuda.device(L.device):
         status = fn(build.ptr(L), build.ptr(b), build.ptr(x), B, n, build.stream_of(L))
-    build.check_status("chol_solve_f32", status)
-    build.LAUNCHES["chol_solve"] += 1
+    build.check_status(fn_name, status)
+    build.LAUNCHES[counter] += 1
     return x
+
+
+def chol_solve_cuda(L, b):
+    return _solve_cuda(L, b, "chol_solve_f32", "chol_solve")
 
 
 def cholesky(H):
@@ -177,20 +208,7 @@ def cholesky_unblocked_cuda(H):
 
 
 def chol_solve_unblocked_cuda(L, b):
-    _check_square(L)
-    B, n, _ = L.shape
-    if b.shape != (B, n):
-        raise ValueError(f"chol_solve_unblocked: rhs {tuple(b.shape)} does not match L "
-                         f"{tuple(L.shape)}")
-    if n > MAX_N_SOLVE:
-        raise ValueError(f"chol_solve_unblocked kernel supports n <= {MAX_N_SOLVE}, got {n}")
-    x = torch.empty_like(b)
-    fn = build.library("chol").chol_solve_unblocked_f32
-    with torch.cuda.device(L.device):
-        status = fn(build.ptr(L), build.ptr(b), build.ptr(x), B, n, build.stream_of(L))
-    build.check_status("chol_solve_unblocked_f32", status)
-    build.LAUNCHES["chol_solve_unblocked"] += 1
-    return x
+    return _solve_cuda(L, b, "chol_solve_unblocked_f32", "chol_solve_unblocked")
 
 
 def cholesky_unblocked(H):

@@ -12,11 +12,13 @@ control deviations w = vec(dU) to the state deviations:
   * `condense`: the wrapper; CPU tensors -> `condense_ref`, CUDA float32
     tensors -> csrc/condense.cu, anything else raises.
 
-K2 takes states of at most 16 (the JAX package's MAX_NX_FAST): SNMPC's
-dense 88-state stack would need 1.2 MB of shared memory in its
-one-block-per-scenario layout, above the 227 KB a block may have, so the
-wrapper refuses a wider state on the card. The dense SNMPC oracle runs on
-the CPU; SNMPC's main (structured) path condenses 8 states through K6.
+K2 takes states of at most 16 (the JAX package's MAX_NX_FAST): one thread
+keeps a column of Gam (nx values) in registers, and SNMPC's dense 88-state
+stack would need 1.2 MB of shared memory for its A, above the 227 KB a
+block may have, so the wrapper refuses a wider state on the card. The dense
+SNMPC oracle runs on the CPU; SNMPC's main (structured) path condenses 8
+states through K6. `condense_plan` gives the launch shape of K2 and K6 and
+refuses what they do not take, before any launch.
 
 K6 ports `_make_kernel_from` (launched by `_condense_tpu_from`): the same
 recurrence over a stage sub-range from a carry (e0, Gam0), stage t's B in
@@ -39,9 +41,43 @@ K2 recurrence on an augmented carry [Gam | e] of nx x (nz+1), stage k's B
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from tum_control_tpu_torch.ops.kernels import build
+
+MAX_NX = 16           # csrc/condense.cu::COND_MAX_NX: a column's nx values in registers
+COLUMNS = 32          # COND_THREADS: columns of Gam (or e), one per thread, per block
+FAST_NX = 8           # COND_FAST_NX: the nx of the unrolled kernel body
+SMEM_BYTES = 232448   # shared memory a block may use on Hopper
+
+
+class CondensePlan(NamedTuple):
+    """Launch shape of K2 / K6 at (N, nx, nu, nz) (csrc/condense.cu computes
+    the same, `cond_layout`): `threads` per block, one per column of Gam or
+    e; `blocks` per scenario for its nz + 1 columns; `nx_template` the nx of
+    the unrolled kernel body (0: the generic body, any nx <= 16);
+    `smem_bytes` of shared memory for the scenario's A, B and xi (each
+    padded to 16 bytes)."""
+    threads: int
+    blocks: int
+    nx_template: int
+    smem_bytes: int
+
+
+def condense_plan(N: int, nx: int, nu: int, nz: int) -> CondensePlan:
+    """K2 / K6's launch shape; raises for N < 1, nx outside 1..MAX_NX, nu < 1,
+    nz < 0, or A, B, xi beyond a block's shared memory."""
+    if N < 1 or not 1 <= nx <= MAX_NX or nu < 1 or nz < 0:
+        raise ValueError(f"condense: K2 / K6 take N >= 1, 1 <= nx <= {MAX_NX} (a column in "
+                         f"registers), nu >= 1; got N = {N}, nx = {nx}, nu = {nu}, nz = {nz}")
+    r4 = lambda v: -(-v // 4) * 4
+    smem = 4 * (r4(N * nx * nx) + r4(N * nx * nu) + r4(N * nx))
+    if smem > SMEM_BYTES:
+        raise ValueError(f"condense: A, B, xi of {N} stages take {smem} bytes of shared memory, "
+                         f"above {SMEM_BYTES}")
+    return CondensePlan(COLUMNS, (nz + COLUMNS) // COLUMNS, FAST_NX if nx == FAST_NX else 0, smem)
 
 
 def condense_ref(A, B, xi, d0):
@@ -58,9 +94,8 @@ def condense_cuda(A, B, xi, d0):
     if A.shape != (Bt, N, nx, nx) or xi.shape != (Bt, N, nx) or d0.shape != (Bt, nx):
         raise ValueError("condense: inconsistent shapes "
                          f"{tuple(A.shape)} {tuple(B.shape)} {tuple(xi.shape)} {tuple(d0.shape)}")
-    if nx > 16:
-        raise ValueError(f"condense: K2 takes nx <= 16 (its shared-memory layout), got nx = {nx}")
     nz = N * nu
+    condense_plan(N, nx, nu, nz)
     e = torch.empty((Bt, N + 1, nx), dtype=A.dtype, device=A.device)
     gam = torch.empty((Bt, N + 1, nx, nz), dtype=A.dtype, device=A.device)
     fn = build.library("condense").condense_f32
@@ -106,6 +141,7 @@ def condense_from_cuda(A, B, xi, e0, G0, col0: int):
             str(tuple(t.shape)) for t in (A, B, xi, e0, G0)))
     if col0 < 0 or col0 + N2 * nu > nz:
         raise ValueError(f"condense_from: columns {col0} .. {col0 + N2 * nu} exceed nz = {nz}")
+    condense_plan(N2, nx, nu, nz)
     e = torch.empty((Bt, N2 + 1, nx), dtype=A.dtype, device=A.device)
     gam = torch.empty((Bt, N2 + 1, nx, nz), dtype=A.dtype, device=A.device)
     fn = build.library("condense").condense_from_f32
@@ -123,10 +159,6 @@ def condense_from(A, B, xi, e0, G0, col0: int):
     if build.use_kernel(A, B, xi, e0, G0):
         return condense_from_cuda(A, B, xi, e0, G0, col0)
     return condense_from_ref(A, B, xi, e0, G0, col0)
-
-
-SMEM_BYTES = 232448   # shared memory a block may use on Hopper
-MAX_NX_AUG = 16       # K8 keeps each augmented column (nx values) in registers
 
 
 def condense_mxu_ref(A, B, xi, d0):
@@ -153,8 +185,8 @@ def condense_mxu_cuda(A, B, xi, d0):
                          f"{tuple(A.shape)} {tuple(B.shape)} {tuple(xi.shape)} {tuple(d0.shape)}")
     nz = N * nu
     smem = 4 * N * nx * (nx + nu + 1)
-    if nx > MAX_NX_AUG or nz + 1 > 1024 or smem > SMEM_BYTES:
-        raise ValueError(f"condense_mxu: K8 takes nx <= {MAX_NX_AUG}, N nu + 1 <= 1024 threads "
+    if nx > MAX_NX or nz + 1 > 1024 or smem > SMEM_BYTES:
+        raise ValueError(f"condense_mxu: K8 takes nx <= {MAX_NX}, N nu + 1 <= 1024 threads "
                          f"and {SMEM_BYTES} bytes of shared memory; got nx = {nx}, "
                          f"N nu = {nz}, {smem} bytes")
     out = torch.empty((Bt, N + 1, nx, nz + 1), dtype=A.dtype, device=A.device)
