@@ -24,22 +24,39 @@ Phases (any failure raises and the script exits non-zero):
      `torch.linalg.cholesky` beside it per call, which synchronizes with
      the host);
   3. drives each ported path's closed loop (PATHS: the nominal NMPC, the
-     SNMPC, the R2NMPC and WMPC over the R2NMPC): `build_simulation` on
-     cuda in float32 with `batched_scenarios` at B = 128, a settle run and
-     a timed run, with the launch counters reset just before and read just
-     after; checks that the path's kernels (and no other) were launched,
-     solver health and finite logs; prints solves/s and |lat_dev| p50/p99
-     (WMPC: the weight switches and the action histogram);
-  4. after all loops (a profiler session slows every later step's host
-     time), a short torch.profiler window of each loop, and the profiler's
-     device time of each kernel case of phase 2 and its library call
-     (`profiled_ms`; the `library_ms` of a library call that synchronizes
-     with the host, so that `ms` and `library_ms` are both device time);
-  5. reruns each path's first steps on the CPU (plain versions) in float64
+     SNMPC, the R2NMPC, WMPC over the R2NMPC and the nominal NMPC with the
+     EXTERNAL cost): `build_simulation` on cuda in float32 with
+     `batched_scenarios` at B = 128, a settle run and a timed run, with the
+     launch counters reset just before and read just after; checks that the
+     path's kernels (and no other) were launched, solver health and finite
+     logs; prints solves/s and |lat_dev| p50/p99 (WMPC: the weight switches
+     and the action histogram);
+  4. the two tuning loops, each with the counters reset just before and
+     read just after: `ppo`, PPO training of the WMPC policy (RLEnv over
+     the nominal NMPC on the stacked Monteblanco + Modena laps, one lap per
+     env; 16 envs, 20 closed-loop steps per env step, the 26 Pareto sets of
+     data/F.csv, the [128, 256, 128] MLP; 2 updates of 8 env steps, batch
+     64, 2 epochs, one EvalCallback evaluation), and `bo`, the
+     multi-objective BO of the cost weights (ObjectiveEvaluator on both
+     segment groups, 10 segments each on the two laps, 150 steps a rollout;
+     8 Sobol candidates, then one BayesianOptimizer step: 3 GP fits,
+     MC-EHVI with 64 samples, q = 5), then one timed objective chunk of
+     128 scenarios; checks losses, rewards, parameters, artifacts,
+     objectives against feasibility, trial count and hypervolume;
+  5. after all loops (a profiler session slows every later step's host
+     time), a short torch.profiler window of each loop and of one env step
+     and one short objective chunk, and the profiler's device time of each
+     kernel case of phase 2 and its library call (`profiled_ms`; the
+     `library_ms` of a library call that synchronizes with the host, so
+     that `ms` and `library_ms` are both device time);
+  6. reruns each path's first steps on the CPU (plain versions) in float64
      and in float32 from the card's own carry at that step and holds the
      card's inputs simU to each (WMPC: and its actions to the float64
-     run's);
-  6. prints the seconds each phase took, one {"kernels": [...]} line
+     run's); holds one env step from the card's trained-env state, and three
+     (candidate, segment) objectives of the timed chunk (a feasible pair of
+     each segment group and an infeasible one of group 1), against the CPU
+     float64 run from the same state;
+  7. prints the seconds each phase took, one {"kernels": [...]} line
      (launches per path; K7 and K8, which no path launches, with 0 and
      "path": null) and, last, the device line.
 
@@ -81,11 +98,14 @@ N2, COL0 = N - UPH, UPH * NU
 # per path: settle steps, timed steps, steps rerun on the CPU (WMPC: 25, so
 # that its first policy update, at step 20, falls inside)
 PATHS = {"nominal": (50, 300, 20), "snmpc": (50, 200, 10), "rnmpc": (50, 200, 10),
-         "wmpc_rnmpc": (50, 200, 25)}
+         "wmpc_rnmpc": (50, 200, 25), "nominal_external": (20, 100, 10)}
 # the MPCConfig of each path (Monteblanco, sim_mode 0, full width and depth)
 WMPC = dict(enable_WMPC=True, WMPC_model="data/wmpc_models/new_BO_F")
 PATH_CONFIG = {"nominal": {}, "snmpc": dict(controller="snmpc"), "rnmpc": dict(controller="rnmpc"),
-               "wmpc_rnmpc": dict(controller="rnmpc", **WMPC)}
+               "wmpc_rnmpc": dict(controller="rnmpc", **WMPC),
+               "nominal_external": dict(costfunction_type="EXTERNAL")}
+# the tuning loops (phase 4), both over the nominal MPCConfig()
+TUNING = ("ppo", "bo")
 # the kernels each path must launch; every other counter must stay 0
 NOMINAL_KERNELS = ("linearize", "condense", "cholesky", "chol_solve", "ipm_iteration")
 PATH_KERNELS = {
@@ -93,7 +113,30 @@ PATH_KERNELS = {
     "snmpc": ("linearize", "condense_from", "cholesky", "chol_solve", "ipm_iteration"),
     "rnmpc": NOMINAL_KERNELS,
     "wmpc_rnmpc": NOMINAL_KERNELS,
+    "nominal_external": NOMINAL_KERNELS,
+    "ppo": NOMINAL_KERNELS,
+    "bo": NOMINAL_KERNELS,
 }
+# the tuning loops at full width, cut in depth (phase 4)
+TRACKS_PPO = ("monteblanco", "modena")
+TRACKS_BO = ("modena", "monteblanco")
+PPO = dict(n_envs=16, n_steps=8, batch_size=64, n_epochs=2)
+PPO_UPDATES, PPO_MPC_STEPS = 2, 20
+BO = dict(n_initial=8, batch_size=5, n_mc=64)
+BO_MAX_STEPS, BO_CHUNK = 150, 128
+# closed-loop steps in the tuning loops' profile windows
+PROFILE_STEPS = 5
+# one env step (20 closed-loop steps) from the card's env state, against the
+# CPU float64 step from the same state: |obs| and reward within TOL_ENV
+# absolute (both lie in [0, 1]-scale units). A float32 closed-loop step lies
+# within 3e-4 of max |simU| of float64 (cpu phase); over 20 steps that moves
+# lat_dev by ~1e-4 m, 2e-5 of the observation's 6 m range
+TOL_ENV = 1e-3
+# one (candidate, segment) objective (max |lat_dev| in m, RMS vel_dev in m/s
+# over 150 steps) on the card against the CPU float64 rollout from the same
+# start, absolute: 1 % of the smallest span between a reference point of the
+# BO (-0.4 m, -0.75 m/s) and a perfect objective
+TOL_OBJ = 4e-3
 # no JAX caller reaches these kernels; held in the kernel phase only
 OFF_PATH = {"condense_mxu", "cholesky_unblocked", "chol_solve_unblocked"}
 
@@ -120,7 +163,8 @@ LATE_FACTOR = 2.0
 # from the same carry: max |card - cpu| <= TOL_U * max |simU f64| per input.
 # One float32 step lies within 3e-4 (nominal) and 2e-4 (SNMPC) of the
 # float64 step on this scale
-TOL_U = {"nominal": 2e-3, "snmpc": 2e-3, "rnmpc": 2e-3, "wmpc_rnmpc": 2e-3}
+TOL_U = {"nominal": 2e-3, "snmpc": 2e-3, "rnmpc": 2e-3, "wmpc_rnmpc": 2e-3,
+         "nominal_external": 2e-3}
 # A (scenario, step) where the CPU's own float32 step lies beyond TOL_U of its
 # float64 step is a state float32 cannot resolve: a soft row within one float32
 # ulp of its bound lands on the other side, the polish's semismooth Newton step
@@ -664,15 +708,15 @@ def move_carry(carry, device, dtype):
     return mv(carry)._replace(key=make_generator(0, device))
 
 
-def profile_window(sim, carry, step_s, tag):
-    """A short torch.profiler window of the loop: device time by kernel and
-    the device's busy share of the untraced step (`step_s` seconds)."""
+def profile_window(run, n_prof, step_s, tag):
+    """A short torch.profiler window of a loop: `run()` drives `n_prof`
+    closed-loop steps; device time by kernel and the device's busy share of
+    the untraced step (`step_s` seconds)."""
     from torch.profiler import ProfilerActivity, profile
-    n_prof = 10
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sim.run_from(carry, n_prof)
+        run()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
     kernels = [r for r in prof.key_averages() if str(r.device_type).endswith("CUDA")]
@@ -681,6 +725,7 @@ def profile_window(sim, carry, step_s, tag):
     with open(os.path.join(OUT_DIR, f"chip_smoke_profile_{tag}.txt"), "w") as fh:
         fh.write("\n".join(f"{_device_us(r):12.1f} us {r.count:7d}  {r.key}"
                            for r in sorted(kernels, key=lambda r: -_device_us(r))))
+    say(f"[profile/{tag}] window of {n_prof} steps and its trace: {time.perf_counter() - t0:.1f} s")
     wall_us, step_us = (t1 - t0) * 1e6, step_s * 1e6
     if dev_us > 0:
         say(f"[profile/{tag}] {n_prof} traced steps: {sum(r.count for r in kernels) / n_prof:.0f} "
@@ -696,6 +741,280 @@ def profile_window(sim, carry, step_s, tag):
             f"{r.count / n_prof:.1f} launches" for r in sorted(hand, key=lambda r: -_device_us(r))))
     else:
         say(f"[profile/{tag}] no device time in the trace: device busy share not measured")
+
+
+def check_launches(path, launches):
+    """The path's kernels, and no other, were launched."""
+    for name, n in launches.items():
+        if name in PATH_KERNELS[path]:
+            check(n > 0, f"kernel {name} was not launched on the {path} path")
+        else:
+            check(n == 0, f"kernel {name} was launched on the {path} path, which does not run it")
+
+
+def stacked_laps(tracks, device, dtype):
+    from tum_control_tpu_torch.config import SimConfig
+    from tum_control_tpu_torch.track.trajectory import load_ref_trajectory, stack_trajectories
+
+    path = SimConfig().trajectory_path
+    return stack_trajectories([
+        load_ref_trajectory(os.path.join(path, f"reftraj_{t}_edgar.json"), dtype=dtype,
+                            device=device) for t in tracks])
+
+
+def make_env(device, dtype):
+    """The RL env of the ppo path: nominal NMPC, one lap per env."""
+    from tum_control_tpu_torch.api import build_simulation
+    from tum_control_tpu_torch.config import MPCConfig, SimConfig
+    from tum_control_tpu_torch.learn.env import RLEnv, RLEnvConfig
+    from tum_control_tpu_torch.learn.observation import ObservationConfig
+    from tum_control_tpu_torch.learn.wmpc import load_param_table
+
+    sim_cfg = SimConfig(sim_mode=0)
+    sim = build_simulation(sim_cfg, MPCConfig(), device=device, dtype=dtype)[0]
+    table = load_param_table(os.path.join(REPO, "data", "F.csv"))
+    return RLEnv(sim, stacked_laps(TRACKS_PPO, device, dtype), table,
+                 ObservationConfig(Ts=sim_cfg.Ts), RLEnvConfig(n_mpc_steps=PPO_MPC_STEPS))
+
+
+def ppo_phase(dev):
+    """PPO training of the WMPC policy on the card, counters reset just
+    before and read just after; then 3 timed env steps."""
+    from tum_control_tpu_torch.learn.policy import load_sb3_policy, save_policy_npz
+    from tum_control_tpu_torch.learn.ppo import EvalCallback, PPOConfig, PPOTrainer
+    from tum_control_tpu_torch.ops.kernels import build
+    from tum_control_tpu_torch.sim.closed_loop import make_generator
+
+    env = make_env(dev, torch.float32)
+    trainer = PPOTrainer(env, PPOConfig(**PPO), seed=0)
+    params0 = [p.detach().clone() for p in trainer.policy.parameters()]
+    out = os.path.join(OUT_DIR, "ppo")
+    for f in ("evaluations.npz", "policy_weights.npz", "best_model/policy_weights.npz"):
+        if os.path.exists(os.path.join(out, f)):
+            os.remove(os.path.join(out, f))
+    # one evaluation: eval_freq 2 evaluates after update 0 of the 2
+    callback = EvalCallback(trainer, out, eval_freq=2, n_envs=PPO["n_envs"],
+                            n_steps=PPO["n_steps"])
+    stamps = []
+
+    def on_update(u, policy, m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        callback(u, policy, m)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    history = trainer.train(PPO_UPDATES, seed=1, callback=on_update)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    save_policy_npz(trainer.policy, os.path.join(out, "policy_weights.npz"))
+    say(f"[ppo] launches over {PPO_UPDATES} updates and one evaluation: {json.dumps(launches)}")
+    check_launches("ppo", launches)
+    update_s = [stamps[0] - t0] + [stamps[2 * i] - stamps[2 * i - 1]
+                                   for i in range(1, PPO_UPDATES)]
+    eval_s = sum(stamps[2 * i + 1] - stamps[2 * i] for i in range(PPO_UPDATES))
+    say(f"[ppo] seconds per update (rollout of {PPO['n_steps']} env steps x {PPO['n_envs']} "
+        f"envs x {PPO_MPC_STEPS} closed-loop steps, {PPO['n_epochs']} epochs): {update_s}; "
+        f"evaluation {eval_s:.3f} s; metrics {history}")
+    for m in history:
+        check(all(np.isfinite(v) for v in m.values()), f"ppo: non-finite metrics {m}")
+        check(0.0 < m["reward_mean"] <= 1.0, f"ppo: mean reward {m['reward_mean']} not in (0, 1]")
+    changed = max(float((p.detach() - q).abs().max())
+                  for p, q in zip(trainer.policy.parameters(), params0))
+    check(changed > 0.0, "ppo: the policy's parameters did not change")
+    for f in ("policy_weights.npz", "evaluations.npz", "best_model/policy_weights.npz"):
+        check(os.path.exists(os.path.join(out, f)), f"ppo: {f} was not written")
+    check(len(callback.history) == 1, f"ppo: {len(callback.history)} evaluations, not one")
+    best = load_sb3_policy(os.path.join(out, "best_model", "policy_weights.npz"), device=dev)
+    check(best.n_actions == env.n_actions, "ppo: the best model has another action count")
+
+    # timed env steps from fresh envs; the carry before the last one is
+    # kept for the CPU hold and the profile window
+    es, obs = env.reset(PPO["n_envs"], make_generator(2, dev))
+    actions = torch.randint(0, env.n_actions, (4, PPO["n_envs"]),
+                            generator=make_generator(3, dev), device=dev)
+    es, obs, _, _ = env.step(es, actions[0])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for a in actions[1:3]:
+        es, obs, reward, done = env.step(es, a)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) / 2 * 1e3
+    check(bool(((reward > 0) & (reward <= 1)).all()), "ppo: an env reward outside (0, 1]")
+    check(bool(torch.isfinite(obs).all()), "ppo: non-finite observations")
+    say(f"[ppo] env step ({PPO['n_envs']} envs x {PPO_MPC_STEPS} closed-loop steps) "
+        f"{step_ms:.3f} ms, {step_ms / PPO_MPC_STEPS:.3f} ms per closed-loop step")
+    return dict(launches=launches, env=env, es=es, action=actions[3],
+                step_s=step_ms / PPO_MPC_STEPS / 1e3, update_s=update_s, eval_s=eval_s)
+
+
+def bo_phase(dev):
+    """The BO of the cost weights on the card: initial Sobol data and one
+    step, counters reset just before and read just after; then one timed
+    objective chunk of BO_CHUNK scenarios."""
+    from tum_control_tpu_torch.api import build_simulation
+    from tum_control_tpu_torch.config import MPCConfig, SimConfig
+    from tum_control_tpu_torch.learn.bo.objective import ObjectiveEvaluator, make_segment_batch
+    from tum_control_tpu_torch.learn.bo.optimizer import BayesianOptimizer, BOConfig
+    from tum_control_tpu_torch.learn.bo.segmentation import get_train_segments
+    from tum_control_tpu_torch.ops.kernels import build
+
+    sim = build_simulation(SimConfig(sim_mode=0), MPCConfig(), device=dev,
+                           dtype=torch.float32)[0]
+    evaluator = ObjectiveEvaluator(sim, stacked_laps(TRACKS_BO, dev, torch.float32),
+                                   max_steps=BO_MAX_STEPS, chunk=BO_CHUNK)
+    groups = get_train_segments(tracks=TRACKS_BO)
+    check([len(g) for g in groups] == [10, 10], f"bo: segment groups {[len(g) for g in groups]}")
+    segs = [make_segment_batch(g, list(TRACKS_BO), dev) for g in groups]
+    # (scenarios, s) of each group's objective call; every call here is one
+    # chunk (8 x 10 and 5 x 10 pairs)
+    chunks = []
+
+    def timed_evaluate(p, seg):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = evaluator.evaluate(p, seg)
+        torch.cuda.synchronize()
+        chunks.append((len(p) * seg.track.shape[0], time.perf_counter() - t))
+        return out
+
+    bo = BayesianOptimizer([functools.partial(timed_evaluate, seg=s) for s in segs],
+                           BOConfig(**BO), seed=0, device=dev)
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bo.generate_initial_data()
+    t1 = time.perf_counter()
+    bo.step(0)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(build.LAUNCHES)
+    say(f"[bo] launches over the initial data and one step: {json.dumps(launches)}")
+    check_launches("bo", launches)
+    fits = len(bo._gp_warm)
+    say(f"[bo] initial data {t1 - t0:.3f} s, one step {t2 - t1:.3f} s ({fits} GP fits); "
+        f"objective chunks (scenarios, s): {chunks}")
+    n_trials = BO["n_initial"] + BO["batch_size"]
+    check(len(bo.trials) == n_trials, f"bo: {len(bo.trials)} trials, not {n_trials}")
+    for t in bo.trials:
+        for g in range(2):
+            finite = bool(np.isfinite(t.objectives[g]).all())
+            check(finite == bool(t.feasible[g]),
+                  f"bo: objectives {t.objectives[g]} against feasible {t.feasible[g]}")
+    hv = [bo.hypervolume(g) for g in range(2)]
+    feas = [sum(bool(t.feasible[g]) for t in bo.trials) for g in range(2)]
+    check(all(np.isfinite(hv)), f"bo: hypervolume {hv}")
+    say(f"[bo] trials {len(bo.trials)}, feasible per group {feas}, hypervolume {hv}")
+
+    # one full chunk: the initial candidates x both groups' segments, the
+    # first BO_CHUNK pairs
+    P = torch.tensor(np.stack([t.params for t in bo.trials[:BO["n_initial"]]]),
+                     dtype=torch.float32, device=dev)
+    tr = torch.cat([s.track for s in segs])
+    st = torch.cat([s.start for s in segs])
+    en = torch.cat([s.end for s in segs])
+    S = tr.shape[0]
+    pairs = (P.repeat_interleave(S, 0)[:BO_CHUNK], tr.repeat(len(P))[:BO_CHUNK],
+             st.repeat(len(P))[:BO_CHUNK], en.repeat(len(P))[:BO_CHUNK])
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    f, feasible = evaluator.run_chunk(*pairs)
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t3
+    group = (torch.arange(BO_CHUNK, device=dev) % S >= segs[0].track.shape[0]).long()
+    per_group = [f"{int(feasible[group == g].sum())} of {int((group == g).sum())}" for g in range(2)]
+    say(f"[bo] objective chunk of {BO_CHUNK} scenarios x {BO_MAX_STEPS} steps: {chunk_s:.3f} s, "
+        f"{chunk_s / BO_MAX_STEPS * 1e3:.3f} ms per closed-loop step; feasible pairs per "
+        f"group {per_group}")
+    check(bool((torch.isfinite(f).all(dim=1) == feasible).all()),
+          "bo: the chunk's objectives are not finite exactly where feasible")
+    return dict(launches=launches, evaluator=evaluator, pairs=pairs, f=f, feasible=feasible,
+                group=group, chunk_s=chunk_s, step_s=chunk_s / BO_MAX_STEPS, chunks=chunks)
+
+
+def tuning_profile_windows(ppo, bo):
+    """The tuning loops' profile windows: one env step and one objective
+    chunk, each of PROFILE_STEPS closed-loop steps, by an env and an
+    evaluator of their own over the phases' closed loops."""
+    from tum_control_tpu_torch.learn.bo.objective import ObjectiveEvaluator
+    from tum_control_tpu_torch.learn.env import RLEnv
+
+    env = ppo["env"]
+    env_short = RLEnv(env.sim, env.stacked, env.table.cpu().numpy(), env.obs_cfg,
+                      env.cfg._replace(n_mpc_steps=PROFILE_STEPS))
+    profile_window(functools.partial(env_short.step, ppo["es"], ppo["action"]), PROFILE_STEPS,
+                   ppo["step_s"], "ppo")
+    ev = bo["evaluator"]
+    ev_short = ObjectiveEvaluator(ev.sim, ev.stacked, max_steps=PROFILE_STEPS, chunk=ev.chunk)
+    profile_window(functools.partial(ev_short.run_chunk, *bo["pairs"]), PROFILE_STEPS,
+                   bo["step_s"], "bo")
+
+
+def ppo_cpu_check(run):
+    """One env step from the card's env state and the CPU float64 (and
+    float32) env step from the same state, with the same actions and reset
+    draws: obs and reward held to TOL_ENV."""
+    env, es, action = run["env"], run["es"], run["action"]
+    draws = env.draw_reset(es.key, action.shape[0])
+    cards = env.step(es, action, draws)
+    out = {}
+    for dt in (torch.float64, torch.float32):
+        cenv = make_env("cpu", dt)
+        ces = es._replace(carry=move_carry(es.carry, "cpu", dt), t=es.t.cpu(),
+                          track=es.track.cpu(), key=None)
+        out[dt] = cenv.step(ces, action.cpu(), tuple(d.cpu() for d in draws))
+    for i, name in ((1, "obs"), (2, "reward")):
+        card = cards[i].double().cpu()
+        e64 = float((card - out[torch.float64][i]).abs().max())
+        e32 = float((out[torch.float32][i].double() - out[torch.float64][i]).abs().max())
+        say(f"[cpu/ppo] env step ({action.shape[0]} envs, {PPO_MPC_STEPS} closed-loop steps): "
+            f"max |{name} card - cpu f64| {e64:.3e}, cpu f32 - cpu f64 {e32:.3e} "
+            f"(tol {TOL_ENV:.0e})")
+        check(e64 <= TOL_ENV, f"ppo: {name} of the card's env step {e64:.3e} from the CPU "
+                              f"float64 step, beyond {TOL_ENV:.0e}")
+    check(torch.equal(cards[3].cpu(), out[torch.float64][3]), "ppo: done differs from the CPU's")
+
+
+def bo_cpu_check(run):
+    """Three of the chunk's (candidate, segment) rollouts again on the CPU in
+    float64 from the same starts, in one batch: the first pair the card
+    counts feasible on group 0, and the first it counts feasible and the
+    first it counts infeasible on group 1 (the straights, where the
+    candidates crash). Feasibility equal to the card's, and f0, f1 within
+    TOL_OBJ where feasible."""
+    from tum_control_tpu_torch.api import build_simulation
+    from tum_control_tpu_torch.config import MPCConfig, SimConfig
+    from tum_control_tpu_torch.learn.bo.objective import ObjectiveEvaluator
+
+    sim = build_simulation(SimConfig(sim_mode=0), MPCConfig(), device="cpu",
+                           dtype=torch.float64)[0]
+    ev = ObjectiveEvaluator(sim, stacked_laps(TRACKS_BO, "cpu", torch.float64),
+                            max_steps=BO_MAX_STEPS)
+    feasible, group = run["feasible"].cpu(), run["group"].cpu()
+    picks = []
+    for label, mask in (("group 0, feasible", (group == 0) & feasible),
+                        ("group 1, feasible", (group == 1) & feasible),
+                        ("group 1, infeasible", (group == 1) & ~feasible)):
+        if bool(mask.any()):
+            picks.append((label, int(torch.nonzero(mask)[0])))
+        else:
+            say(f"[cpu/bo] the chunk has no pair of {label}")
+    check(len(picks) > 0, "bo: no pair to hold against the CPU")
+    idx = torch.tensor([i for _, i in picks])
+    p, tr, st, en = (a.cpu()[idx] for a in run["pairs"])
+    f64, feas64 = ev.run_chunk(p.double(), tr, st, en)
+    card = run["f"].double().cpu()[idx]
+    for k, (label, i) in enumerate(picks):
+        err = float((card[k] - f64[k]).abs().max()) if bool(feas64[k]) else 0.0
+        say(f"[cpu/bo] pair {i} ({label}; lap {int(tr[k])}, segment {int(st[k])}..{int(en[k])}): "
+            f"card {card[k].tolist()}, cpu f64 {f64[k].tolist()}, max |difference| {err:.3e} "
+            f"(tol {TOL_OBJ:.0e})")
+        check(bool(feas64[k]) == bool(feasible[i]),
+              f"bo: pair {i}'s feasibility on the card differs from the CPU float64 run's")
+        check(err <= TOL_OBJ, f"bo: pair {i}'s objective {err:.3e} from the CPU float64 run")
 
 
 def loop_phase(dev, path):
@@ -725,11 +1044,7 @@ def loop_phase(dev, path):
     t2 = time.perf_counter()
     launches = dict(build.LAUNCHES)
     say(f"[loop/{path}] launches over {settle + steps} steps: {json.dumps(launches)}")
-    for name, n in launches.items():
-        if name in PATH_KERNELS[path]:
-            check(n > 0, f"kernel {name} was not launched on the {path} path")
-        else:
-            check(n == 0, f"kernel {name} was launched on the {path} path, which does not run it")
+    check_launches(path, launches)
 
     for lg in (log_settle, log):
         for f, v in lg._asdict().items():
@@ -885,26 +1200,41 @@ def main():
     for path in PATHS:
         runs[path] = loop_phase(dev, path)
         t = lap(f"loop/{path}", t)
-    for path, run in runs.items():
-        profile_window(run["sim"], run["carry"], run["step_s"], path)
+    runs["ppo"] = ppo_phase(dev)
+    t = lap("ppo", t)
+    runs["bo"] = bo_phase(dev)
+    t = lap("bo", t)
+    for path in PATHS:
+        run = runs[path]
+        profile_window(functools.partial(run["sim"].run_from, run["carry"], 10), 10,
+                       run["step_s"], path)
+    ppo, bo = runs["ppo"], runs["bo"]
+    tuning_profile_windows(ppo, bo)
+    t = lap("profile windows", t)
     profile_kernels(results, jobs)
-    t = lap("profiles", t)
-    for path, run in runs.items():
+    t = lap("kernel profiles", t)
+    for path in PATHS:
+        run = runs[path]
         cpu_phase(path, run["sim"], run["carry0"], run["log_settle"])
         t = lap(f"cpu/{path}", t)
+    ppo_cpu_check(ppo)
+    t = lap("cpu/ppo", t)
+    bo_cpu_check(bo)
+    t = lap("cpu/bo", t)
     lap("whole script after the imports", t_start)
-    per_path = {path: run["launches"] for path, run in runs.items()}
+    all_paths = list(PATHS) + list(TUNING)
+    per_path = {path: runs[path]["launches"] for path in all_paths}
     check(set(results) == set(build.LAUNCHES), "kernel list and launch counters differ")
     kernels = []
     for name in build.LAUNCHES:
-        n = {path: per_path[path][name] for path in PATHS}
+        n = {path: per_path[path][name] for path in all_paths}
         if name in OFF_PATH:
             check(sum(n.values()) == 0, f"kernel {name} was launched on a path")
         else:
             check(sum(n.values()) > 0, f"kernel {name} was launched on no path")
         head = {k: results[name].pop(k) for k in ("name", "route", "source", "replaces")}
         kernels.append(dict(head, launches=sum(n.values()), **results[name], launches_per_path=n,
-                            path=None if name in OFF_PATH else [p for p in PATHS if n[p] > 0]))
+                            path=None if name in OFF_PATH else [p for p in all_paths if n[p] > 0]))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -29,6 +29,17 @@ from tum_control_tpu_torch.sim.disturbances import disturbance_config
 from tum_control_tpu_torch.sim.estimator import init_estimator
 from tum_control_tpu_torch.track.trajectory import load_ref_trajectory
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: one intra-op thread is as fast alone and keeps the
+    parallel test workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL = 1e-4
 STATE_FIELDS = ("MPC_SimX", "CiLX", "DisturbedX", "simU", "simREF", "lat_dev", "vel_dev",
                 "dist_deriv", "dist_se")
@@ -71,11 +82,12 @@ def test_nominal_closed_loop_200_steps_matches_jax():
 def test_port_imports_without_jax_and_needs_cuda_by_default():
     """The whole package imports with `jax` and `tum_control_tpu` blocked,
     loads neither, and its entry points (build_simulation, build_controller
-    for every controller and WMPC, load_sb3_policy, the convert functions)
-    and constructors (GGTables, NominalNMPC, StochasticNMPC,
-    ReducedRobustNMPC, load_ref_trajectory, disturbance_config,
-    init_estimator, init_warm) raise without a CUDA device unless the caller names
-    a device."""
+    for every controller and WMPC, load_sb3_policy, the convert functions,
+    the training entry modules rl_training and bo_optimize) and constructors
+    (GGTables, NominalNMPC, StochasticNMPC, ReducedRobustNMPC,
+    load_ref_trajectory, disturbance_config, init_estimator, init_warm,
+    init_mlp_policy, BayesianOptimizer) raise without a CUDA device unless
+    the caller names a device."""
     code = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
 
@@ -100,7 +112,10 @@ def test_port_imports_without_jax_and_needs_cuda_by_default():
         from tum_control_tpu_torch.controllers.nominal import NominalNMPC
         from tum_control_tpu_torch.controllers.rnmpc import ReducedRobustNMPC
         from tum_control_tpu_torch.controllers.snmpc import StochasticNMPC
-        from tum_control_tpu_torch.learn.policy import load_sb3_policy
+        from tum_control_tpu_torch import bo_optimize, rl_training
+        from tum_control_tpu_torch.learn.bo.optimizer import BayesianOptimizer
+        from tum_control_tpu_torch.learn.policy import init_mlp_policy, load_sb3_policy
+        from tum_control_tpu_torch.sim.closed_loop import make_generator
         from tum_control_tpu_torch.ops.ipm import init_warm
         from tum_control_tpu_torch.sim.disturbances import disturbance_config
         from tum_control_tpu_torch.sim.estimator import init_estimator
@@ -150,7 +165,14 @@ def test_port_imports_without_jax_and_needs_cuda_by_default():
         needs_cuda("disturbance_config", lambda: disturbance_config("gaussian", z(7)))
         needs_cuda("init_estimator", lambda: init_estimator(2))
         needs_cuda("init_warm", lambda: init_warm(2, 154))
+        gen = make_generator(0, "cpu")
+        needs_cuda("init_mlp_policy", lambda: init_mlp_policy(gen, 22, 26))
+        needs_cuda("BayesianOptimizer", lambda: BayesianOptimizer([]))
+        needs_cuda("rl_training", lambda: rl_training.main(["--smoke"]))
+        needs_cuda("bo_optimize", lambda: bo_optimize.main(["--smoke"]))
         assert load_ref_trajectory(traj_file, device="cpu").pos.device.type == "cpu"
+        assert init_mlp_policy(gen, 22, 26, device="cpu").n_actions == 26
+        assert BayesianOptimizer([], device="cpu").device.type == "cpu"
         build_simulation(sim, MPCConfig(), device="cpu")
         build_simulation(sim, snmpc, device="cpu")
         build_simulation(sim, wmpc, device="cpu")

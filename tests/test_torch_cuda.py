@@ -7,7 +7,9 @@ held on its own, at ragged and the shipped shapes and with a non-finite
 factor; K1 at the SNMPC shape and at a ragged element count; K2 at ragged
 shapes (both kernel bodies), K6 from a carry dense in every column, K5 and
 the K7 solve with garbage above L's diagonal; the kernels' own launch-shape
-queries against the Python plans.
+queries against the Python plans. The tuning loops' pieces: the planner on
+one lap per scenario against the CPU, one RL env step and one BO objective
+chunk against the CPU float64 run from the same state, each through K1-K5.
 
 Marked `cuda`; without a CUDA device every test skips. On a GPU machine:
 
@@ -25,7 +27,8 @@ import pytest
 import torch
 
 from chip_smoke import (
-    BACKWARD_TOL, PATH_CONFIG, backward_error, ipm_shaped_h, ipm_start, k4_args, random_qp,
+    BACKWARD_TOL, PATH_CONFIG, TOL_ENV, TOL_OBJ, TRACKS_BO, backward_error, ipm_shaped_h,
+    ipm_start, k4_args, make_env, random_qp, stacked_laps,
 )
 from tum_control_tpu_torch.api import build_controller, build_simulation
 from tum_control_tpu_torch.config import MPCConfig, SimConfig
@@ -475,6 +478,7 @@ PATH_LAUNCHES = {
     "snmpc": dict(NOMINAL_LAUNCHES, condense=0, condense_from=5),
     "rnmpc": NOMINAL_LAUNCHES,
     "wmpc_rnmpc": NOMINAL_LAUNCHES,
+    "nominal_external": NOMINAL_LAUNCHES,
 }
 
 
@@ -492,3 +496,87 @@ def test_short_closed_loop_goes_through_every_kernel(dev, path):
             assert torch.isfinite(v).all(), f
     wmpc = PATH_CONFIG[path].get("enable_WMPC", False)
     assert ((log.wmpc_action >= 0) if wmpc else (log.wmpc_action == -1)).all()
+
+
+def test_planner_per_scenario_laps_on_card(dev):
+    """The planner on one lap per scenario (two laps, poses near both ends)
+    on the card against the same float32 inputs on the CPU."""
+    from tum_control_tpu_torch.track.planner import planner_emulator
+    from tum_control_tpu_torch.track.trajectory import select_laps
+
+    laps = torch.tensor([0, 1, 1, 0, 1, 0])
+    stacked = stacked_laps(TRACKS_BO, "cpu", torch.float32)
+    idx = torch.tensor([10, 500, 998, 1185, 3, 700])
+    pose = stacked.pos[laps, idx] + 0.3
+    c_cpu, w_cpu = planner_emulator(select_laps(stacked, laps), pose, 3.04, 39)
+    on_card = stacked_laps(TRACKS_BO, dev, torch.float32)
+    c, w = planner_emulator(select_laps(on_card, laps.to(dev)), pose.to(dev), 3.04, 39)
+    assert torch.equal(c.cpu(), c_cpu)
+    for f in ("pos", "yaw", "v"):
+        _close(getattr(w, f).cpu(), getattr(w_cpu, f), 1e-6)
+
+
+def test_env_step_on_card_matches_cpu(dev):
+    """One RL env step (4 envs on both laps, 3 closed-loop steps) on the card
+    against the CPU float64 step from the same reset: obs and reward within
+    chip_smoke.TOL_ENV, and every nominal kernel launched."""
+    from tum_control_tpu_torch.learn.env import RLEnvConfig
+
+    envs = {d: make_env(d, dt) for d, dt in ((dev, torch.float32), ("cpu", torch.float64))}
+    out = {}
+    for d, env in envs.items():
+        env.cfg = RLEnvConfig(n_mpc_steps=3)
+        track = torch.tensor([0, 1, 1, 0], device=env.device)
+        ridx = torch.tensor([0, 100, 400, 800], device=env.device)
+        es, _ = env.reset_from(track, ridx, None)
+        action = torch.tensor([0, 5, 12, 25], device=env.device)
+        if d == dev:
+            build.reset_launches()
+        out[d] = env.step(es, action, (track, ridx))
+        if d == dev:
+            torch.cuda.synchronize()
+            launches = dict(build.LAUNCHES)
+    assert launches == {k: 3 * v // 5 for k, v in NOMINAL_LAUNCHES.items()}
+    for i in (1, 2):
+        err = float((out[dev][i].double().cpu() - out["cpu"][i]).abs().max())
+        assert err <= TOL_ENV, (i, err)
+    assert torch.equal(out[dev][3].cpu(), out["cpu"][3])
+
+
+def test_objective_chunk_on_card_matches_cpu(dev):
+    """One BO objective chunk (4 (candidate, segment) pairs on the two laps,
+    20 steps) on the card against the CPU float64 chunk: feasibility equal,
+    objectives within chip_smoke.TOL_OBJ, and every nominal kernel launched.
+
+    The crashing pair crashes at its first step in float32 and float64 alike
+    (a_comb ~9.4 against 1.02). Weights that extreme sit on the edge
+    elsewhere: [30, 0, 30, 0, 20, 500, 500] from Modena's index 45 crashes at
+    step 0 in float64 (a_comb 8.5) but at step 3 in float32, and with
+    q_yaw = 5 the float32 first solve fails (status 3, the plant coasts)
+    where float64's returns a finite crash; so no such pair is used here.
+    The JAX package's float32 objective counts both of those pairs feasible
+    over 20 steps (tests/test_torch_bo_feasibility.py): float64 and float32
+    part there in the reference too."""
+    from tum_control_tpu_torch.learn.bo.objective import ObjectiveEvaluator
+
+    P = np.array([[10, 2, 10, 2, 200, 1000, 1000], [10, 2, 10, 2, 200, 1000, 1000],
+                  [30, 0, 30, 0, 20, 500, 500], [1, 5, 1, 6, 400, 2000, 2000]], float)
+    tr, st, en = torch.tensor([0, 1, 1, 0]), torch.tensor([45, 600, 600, 45]), \
+        torch.tensor([236, 608, 608, 236])
+    res = {}
+    for d, dt in ((dev, torch.float32), ("cpu", torch.float64)):
+        sim = build_simulation(SimConfig(sim_mode=0), MPCConfig(), device=d, dtype=dt)[0]
+        ev = ObjectiveEvaluator(sim, stacked_laps(TRACKS_BO, d, dt), max_steps=20)
+        p = torch.tensor(P, dtype=dt, device=d)
+        if d == dev:
+            build.reset_launches()
+        res[d] = ev.run_chunk(p, tr.to(d), st.to(d), en.to(d))
+        if d == dev:
+            torch.cuda.synchronize()
+            assert all(build.LAUNCHES[k] > 0 for k in
+                       ("linearize", "condense", "cholesky", "chol_solve", "ipm_iteration"))
+    f, feas = (a.cpu() for a in res[dev])
+    assert feas.tolist() == [True, True, False, True]
+    assert torch.equal(feas, res["cpu"][1])
+    assert torch.equal(torch.isnan(f), torch.isnan(res["cpu"][0]))
+    assert float((f.double() - res["cpu"][0]).nan_to_num().abs().max()) <= TOL_OBJ

@@ -5,6 +5,7 @@ Tolerances as in tests/test_torch_closed_loop.py (atol 1e-4 on states,
 identical solver statuses).
 """
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -17,6 +18,16 @@ from tum_control_tpu_torch.ops.ipm import IPMWarm
 from tum_control_tpu_torch.parallel.mesh import batched_scenarios
 
 from test_torch_closed_loop import _builds, _compare_logs
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: one intra-op thread is as fast alone and keeps the
+    parallel test workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_mode1_closed_loop_matches_jax():

@@ -42,6 +42,17 @@ from tum_control_tpu_torch.ops.kernels.condense import condense_from, condense_f
 from tum_control_tpu_torch.parallel.mesh import batched_scenarios
 from tum_control_tpu_torch.track.planner import RefWindow
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: one intra-op thread is as fast alone and keeps the
+    parallel test workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F64 = torch.float64
 
 

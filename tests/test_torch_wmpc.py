@@ -38,6 +38,17 @@ from tum_control_tpu_torch.track.planner import RefWindow
 
 from test_torch_closed_loop import _compare_logs
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: one intra-op thread is as fast alone and keeps the
+    parallel test workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F64 = torch.float64
 T = lambda a: torch.tensor(np.asarray(a))
 MODEL = "data/wmpc_models/new_BO_F"

@@ -7,10 +7,21 @@ Tolerances: logs, carried weights and corrections to 1e-8
 solver statuses).
 """
 import pytest
+import torch
 
 from tum_control_tpu_torch import convert
 
 from test_torch_wmpc import F64, _close, _compare_logs, _extra_np, _wmpc_runs
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: one intra-op thread is as fast alone and keeps the
+    parallel test workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("controller", ["rnmpc", "snmpc"])

@@ -1,10 +1,13 @@
 """Nominal NMPC controller (batched port of
-tum_control_tpu/controllers/nominal.py), NONLINEAR_LS cost only.
+tum_control_tpu/controllers/nominal.py).
 
   * 8-state single-track prediction model, RK4 3 substeps x Ts_MPC shooting,
     linearized by K1 (ops/kernels/linearize.py),
   * NONLINEAR_LS cost on y = [posx, posy, yaw in [0,2pi), vlong, jerk,
-    steering_rate] with W = 0.01 blkdiag(Q, R), We = 0.01 Q,
+    steering_rate] with W = 0.01 blkdiag(Q, R), We = 0.01 Q; or the
+    EXTERNAL cost: the same weights on the residual [ego-frame longitudinal
+    and lateral deviation, yaw - yaw_ref, vlong - v_ref, jerk,
+    steering_rate], with Levenberg-Marquardt damping 0.1,
   * the combined-acceleration constraint rows + a soft delta_f state bound
     + the steering-rate input bound with L1/L2 slack penalties; node 0 has
     no delta_f bound and a hard (z1 = 0, z2 = HARD_Z2) input row.
@@ -45,10 +48,6 @@ class NominalNMPC:
 
     def __init__(self, mpc_cfg: MPCConfig, N: int, dt: float, vp: VehicleParams,
                  tp: TireParams, gg: GGTables, device=None, dtype=torch.float32):
-        if mpc_cfg.costfunction_type.upper() != "NONLINEAR_LS":
-            raise NotImplementedError(
-                f"cost function '{mpc_cfg.costfunction_type}': only NONLINEAR_LS is ported"
-            )
         self.cfg = mpc_cfg
         self.N, self.dt = N, dt
         self.vp, self.tp, self.gg = vp, tp, gg
@@ -62,6 +61,22 @@ class NominalNMPC:
 
         def y_term(x):
             return torch.cat([x[..., 0:2], wrap_2pi(x[..., 2:3]), x[..., 3:4]], dim=-1)
+
+        def lonlat(x, yr):
+            """Ego-frame [longitudinal, lateral, yaw, velocity] deviations."""
+            yaw = wrap_2pi(x[..., 2])
+            c, s = torch.cos(-yaw), torch.sin(-yaw)
+            dx, dy = yr[..., 0] - x[..., 0], yr[..., 1] - x[..., 1]
+            return torch.stack([c * dx - s * dy, s * dx + c * dy, yaw - yr[..., 2],
+                                x[..., 3] - yr[..., 3]], dim=-1)
+
+        def resid_lonlat(x, u, yr):
+            return torch.cat([lonlat(x, yr), u], dim=-1)
+
+        cost = mpc_cfg.costfunction_type.upper()
+        if cost not in ("NONLINEAR_LS", "EXTERNAL"):
+            raise ValueError(f"unknown cost function type '{mpc_cfg.costfunction_type}'")
+        external = cost == "EXTERNAL"
 
         def con_stage(x):
             h = acc_constraints(x[..., 3], x[..., 7], x[..., 3] * x[..., 5], gg, vp.acc_min, shape)
@@ -94,12 +109,15 @@ class NominalNMPC:
             lin_rollout=LinearizeRollout(vp, tp, dt, N_SHOOTING_SUBSTEPS, self.nx),
             y_select=(0, 1, 2, 3),
             y_select_term=(0, 1, 2, 3),
+            resid_stage=resid_lonlat if external else None,
+            resid_term=lonlat if external else None,
         )
         self.engine = RTIEngine(
             funcs=funcs, N=N, nx=self.nx, nu=self.nu, W=t(W), We=t(We),
             con_lb=t(con_lb), con_ub=t(con_ub), con_z1=t(con_z1), con_z2=t(con_z2),
             u_lb=t(u_lb), u_ub=t(u_ub), u_z1=t(u_z1), u_z2=t(u_z2),
-            newton_iters=mpc_cfg.qp_iters, sqp_iters=mpc_cfg.sqp_iters,
+            newton_iters=mpc_cfg.qp_iters, lm_reg=0.1 if external else 0.0,
+            sqp_iters=mpc_cfg.sqp_iters,
         )
 
     # ------------------------------------------------------------------

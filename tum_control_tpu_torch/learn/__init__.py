@@ -1,2 +1,3 @@
-"""Weights-varying MPC inference: the policy MLP, its observation and the
-WMPC wrapper (port of tum_control_tpu/learn; training waits)."""
+"""Weights-varying MPC and its training: the policy MLP, its observation,
+the WMPC wrapper, the RL env and PPO, and the Bayesian optimisation of the
+cost weights (port of tum_control_tpu/learn)."""

@@ -1,5 +1,5 @@
 """Actor-critic MLP policy (SB3 MlpPolicy layout), port of
-tum_control_tpu/learn/policy.py for inference:
+tum_control_tpu/learn/policy.py:
 
     obs -> policy_net [128, 256, 128] (tanh) -> action_net logits
         -> value_net trunk of the same widths -> value_net head
@@ -7,8 +7,9 @@ tum_control_tpu/learn/policy.py for inference:
 `predict` is the deterministic action, the argmax of the logits, as SB3's
 categorical policy gives it. The converted checkpoints
 (data/wmpc_models/<name>/policy_weights.npz) store PyTorch-layout (out, in)
-weights, which `nn.Linear` takes as they are. The products are plain
-matmuls (no kernel of the JAX package covers them).
+weights, which `nn.Linear` takes as they are; `save_policy_npz` writes the
+same layout, so a policy trained here loads in either package. The
+products are plain matmuls (no kernel of the JAX package covers them).
 """
 from __future__ import annotations
 
@@ -54,6 +55,60 @@ class MLPPolicy(nn.Module):
     def predict(self, obs):
         """Deterministic discrete action (argmax over logits), int64."""
         return torch.argmax(self.logits(obs), dim=-1)
+
+    def action_probabilities(self, obs):
+        """Softmax action distribution (..., n_actions)."""
+        return torch.softmax(self.logits(obs), dim=-1)
+
+
+def _orthogonal(gen: torch.Generator, fan_in: int, fan_out: int, scale: float):
+    """scale x a (fan_in, fan_out) matrix with orthonormal columns (or rows,
+    when fan_in < fan_out): Q of the QR factorization of a normal draw, as
+    the JAX package's `init_mlp_policy` makes it."""
+    a = torch.randn((fan_in, fan_out), generator=gen, dtype=torch.float64)
+    if fan_in >= fan_out:
+        q = torch.linalg.qr(a)[0]
+    else:
+        q = torch.linalg.qr(a.T)[0].T
+    return scale * q[:fan_in, :fan_out]
+
+
+def init_mlp_policy(gen: torch.Generator, obs_dim: int, n_actions: int,
+                    hidden=(128, 256, 128), device=None, dtype=torch.float32) -> MLPPolicy:
+    """A fresh policy for training from scratch: orthogonal weights (gain
+    sqrt 2 in the trunks, 0.01 on the action head, 1 on the value head),
+    zero biases, drawn from `gen` on the CPU in float64 and then moved to
+    `device` (cuda unless named) and `dtype`."""
+    device = resolve_device(device)
+    policy = MLPPolicy(obs_dim, n_actions, hidden)
+    layers = ([(layer, np.sqrt(2)) for layer in policy.pi]
+              + [(layer, np.sqrt(2)) for layer in policy.vf]
+              + [(policy.action_net, 0.01), (policy.value_net, 1.0)])
+    with torch.no_grad():
+        for layer, gain in layers:
+            w = _orthogonal(gen, layer.in_features, layer.out_features, gain)
+            layer.weight.copy_(w.T)
+            layer.bias.zero_()
+    return policy.to(device=device, dtype=dtype)
+
+
+def policy_arrays(policy: MLPPolicy) -> dict:
+    """The converted-SB3 arrays of a policy (weights (out, in), numpy)."""
+    arrs = {}
+    for prefix, layers in (("policy_net", policy.pi), ("value_net", policy.vf)):
+        for i, layer in enumerate(layers):
+            arrs[f"mlp_extractor__{prefix}__{2 * i}__weight"] = layer.weight
+            arrs[f"mlp_extractor__{prefix}__{2 * i}__bias"] = layer.bias
+    for name in ("action_net", "value_net"):
+        arrs[f"{name}__weight"] = getattr(policy, name).weight
+        arrs[f"{name}__bias"] = getattr(policy, name).bias
+    return {k: v.detach().cpu().numpy() for k, v in arrs.items()}
+
+
+def save_policy_npz(policy: MLPPolicy, npz_path: str):
+    """Save in the converted-SB3 npz layout that both packages'
+    `load_sb3_policy` read."""
+    np.savez(npz_path, **policy_arrays(policy))
 
 
 def policy_from_arrays(arrs: dict, device=None, dtype=torch.float32) -> MLPPolicy:

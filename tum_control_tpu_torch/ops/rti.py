@@ -6,9 +6,12 @@ One `solve_full` per control step, for B scenarios at once:
      controller's fused rollout + sensitivity function (K1), else its
      `dyn_jac`,
   2. condense the state deviations onto w = vec(dU) (K2),
-  3. assemble the Gauss-Newton QP through the selection-structured cost
-     (`y_select`) or forward-mode AD of `y_stage`, and the state-constraint
-     rows through forward-mode AD of `con_stage`,
+  3. assemble the Gauss-Newton QP: from the Jacobians of the reference-
+     dependent residuals `resid_stage` / `resid_term` (the EXTERNAL cost,
+     by forward-mode AD; they take precedence over `y_select`), through the
+     selection-structured cost (`y_select`), or by forward-mode AD of
+     `y_stage`; add `lm_reg` I (Levenberg-Marquardt damping) to H0; the
+     state-constraint rows through forward-mode AD of `con_stage`,
   4. solve it with the interior-point method and one Newton polish
      (ops/ipm.py: K3, K4, K5), update the iterate with the linear QP step,
   5. reset a scenario whose result is non-finite, exploded or whose relative
@@ -18,8 +21,7 @@ A controller may replace steps 1-3 by `build_qp` + `expand_dx` (SNMPC's
 structured path: K1 + K6). A solve may override the engine's weights, bounds
 and slack penalties per scenario through `QPMods` (WMPC's weight swaps,
 R2NMPC's bound tightening). The JAX package's `lin_condense`, `y_jac` and
-`con_jac` hooks are left out: no path of the port would take them. The
-`resid_stage` (EXTERNAL cost) branch and `lm_reg` wait for their slice.
+`con_jac` hooks are left out: no path of the port would take them.
 """
 from __future__ import annotations
 
@@ -49,6 +51,10 @@ class OCPFunctions(NamedTuple):
     dyn_jac  : (x, u) -> (F, A (..., N, nx, nx), B (..., N, nx, nu))
     y_select / y_select_term: state indices of the leading y rows, when
         y = [x[sel] (unit Jacobian), u]
+    resid_stage: (x, u, yref (..., N, ny)) -> (..., N, ny) residual of a
+        reference-dependent cost (the EXTERNAL cost's ego-frame lon/lat
+        deviations), in place of y_stage(x, u) - yref
+    resid_term: (x (..., nx), yref_e (..., ny_e)) -> (..., ny_e)
     build_qp : (X, U, x0, yref, yref_e, merged) -> (CondensedQP, aux), the
         whole QP assembly; `merged` is `RTIEngine._merged(mods)`, the
         (W, We, con_lb, con_ub, con_z1, con_z2, u_lb, u_ub, u_z1, u_z2) of
@@ -63,6 +69,8 @@ class OCPFunctions(NamedTuple):
     dyn_jac: Callable = None
     y_select: tuple = None
     y_select_term: tuple = None
+    resid_stage: Callable = None
+    resid_term: Callable = None
     build_qp: Callable = None
     expand_dx: Callable = None
 
@@ -124,7 +132,8 @@ class RTIEngine:
 
     def __init__(self, funcs: OCPFunctions, N: int, nx: int, nu: int, W, We,
                  con_lb, con_ub, con_z1, con_z2, u_lb, u_ub, u_z1, u_z2,
-                 newton_iters: int = 15, sqp_iters: int = 1, kkt_fail_rel: float = 1e4):
+                 newton_iters: int = 15, lm_reg: float = 0.0, sqp_iters: int = 1,
+                 kkt_fail_rel: float = 1e4):
         if (funcs.build_qp is None) != (funcs.expand_dx is None):
             raise ValueError("OCPFunctions.build_qp and expand_dx must be provided together")
         self.funcs = funcs
@@ -134,6 +143,7 @@ class RTIEngine:
         self.con_lb, self.con_ub, self.con_z1, self.con_z2 = con_lb, con_ub, con_z1, con_z2
         self.u_lb, self.u_ub, self.u_z1, self.u_z2 = u_lb, u_ub, u_z1, u_z2
         self.newton_iters = newton_iters
+        self.lm_reg = lm_reg
         self.sqp_iters = sqp_iters
         self.kkt_fail_rel = kkt_fail_rel
         self.nc_total = (N + 1) * con_lb.shape[1] + N * nu
@@ -199,7 +209,7 @@ class RTIEngine:
         A, Bm, xi = self._linearize(state)
         e, Gam = condense(A, Bm, xi.contiguous(), d0.contiguous())
 
-        if f.y_select is not None:
+        if f.y_select is not None and f.resid_stage is None:
             # --- Gauss-Newton cost, selection-structured: y = [x[sel], u] ---
             sel = list(f.y_select)
             sel_e = list(f.y_select_term)
@@ -223,16 +233,27 @@ class RTIEngine:
                 + mtv(Me, We * re0)
             )
         else:
-            # --- Gauss-Newton cost from the output Jacobians ---
+            # --- Gauss-Newton cost from the residual Jacobians: the
+            # EXTERNAL cost's resid_stage / resid_term, else y - yref ---
+            if f.resid_stage is not None:
+                resid = lambda xu: f.resid_stage(xu[..., :nx], xu[..., nx:], yref)
+                resid_e = lambda x: f.resid_term(x, yref_e)
+            else:
+                resid = lambda xu: f.y_stage(xu[..., :nx], xu[..., nx:]) - yref
+                resid_e = lambda x: f.y_term(x) - yref_e
             XU = torch.cat([state.X[:, :-1], state.U], dim=2)
-            Y, Jy = jacobian_fwd(lambda xu: f.y_stage(xu[..., :nx], xu[..., nx:]), XU)
-            Jyx, Jyu = Jy[..., :nx], Jy[..., nx:]
-            r0 = Y - yref + torch.matmul(Jyx, e[:, :N, :, None])[..., 0]
-            M = torch.matmul(Jyx, Gam[:, :N]) + torch.matmul(Jyu, self.E)  # (B, N, ny, nz)
-            ye, Jye = jacobian_fwd(f.y_term, state.X[:, N])
-            re0 = ye - yref_e + torch.matmul(Jye, e[:, N, :, None])[..., 0]
-            Me = torch.matmul(Jye, Gam[:, N])
+            R, Jr = jacobian_fwd(resid, XU)
+            Jrx, Jru = Jr[..., :nx], Jr[..., nx:]
+            r0 = R + torch.matmul(Jrx, e[:, :N, :, None])[..., 0]
+            M = torch.matmul(Jrx, Gam[:, :N]) + torch.matmul(Jru, self.E)  # (B, N, ny, nz)
+            re, Jre = jacobian_fwd(resid_e, state.X[:, N])
+            re0 = re + torch.matmul(Jre, e[:, N, :, None])[..., 0]
+            Me = torch.matmul(Jre, Gam[:, N])
             H0, g0 = self._gn_assemble(r0, M, re0, Me, W, We)
+
+        if self.lm_reg:
+            # Levenberg-Marquardt damping in the condensed variables
+            H0 = H0 + self.lm_reg * torch.eye(nz, dtype=H0.dtype, device=H0.device)
 
         # --- constraint rows: value + Jacobian of con_stage at every node ---
         C, Jc = jacobian_fwd(f.con_stage, state.X)                    # (B,N+1,nc), (B,N+1,nc,nx)
@@ -248,10 +269,14 @@ class RTIEngine:
     def nonlinear_cost(self, state: RTIState, yref, yref_e, mods: QPMods = None):
         """acados `get_cost()` analog: LS cost + slack penalties, (B,)."""
         W, We, con_lb, con_ub, con_z1, con_z2, u_lb, u_ub, u_z1, u_z2 = self._merged(mods)
-        N = self.N
-        r = self.funcs.y_stage(state.X[:, :-1], state.U) - yref
+        f, N = self.funcs, self.N
+        if f.resid_stage is not None:
+            r = f.resid_stage(state.X[:, :-1], state.U, yref)
+            re = f.resid_term(state.X[:, N], yref_e)
+        else:
+            r = f.y_stage(state.X[:, :-1], state.U) - yref
+            re = f.y_term(state.X[:, N]) - yref_e
         cost = 0.5 * torch.sum(r * r * W.unsqueeze(-2), dim=(1, 2))
-        re = self.funcs.y_term(state.X[:, N]) - yref_e
         cost = cost + 0.5 * torch.sum(re * re * We, dim=1)
         C = self.funcs.con_stage(state.X)
         du = torch.clamp(C - con_ub, min=0.0)

@@ -12,7 +12,10 @@ One `step` performs, for B scenarios at once:
   * sim_mode 1 (MPC-in-loop): the plant is the MPC's node-1 prediction.
 
 `run` / `run_from` loop over steps in Python (the JAX package's `lax.scan`)
-and return the SimLog fields stacked as (B, n_steps, ...).
+and return the SimLog fields stacked as (B, n_steps, ...). A step may plan
+every scenario on a lap of its own (`traj`), and `select_carry` latches or
+resets scenarios one by one (the RL env's auto-reset, the BO objective's
+done / crash freeze).
 """
 from __future__ import annotations
 
@@ -59,6 +62,21 @@ class SimLog(NamedTuple):
     wmpc_action: torch.Tensor     # () int32 active WMPC weight-set index (-1: no WMPC)
 
 
+def select_carry(mask, a, b):
+    """Per scenario, `a` where mask (B,) is True, else `b`: torch.where over
+    every tensor of two SimCarry (or any NamedTuple / None tree of (B, ...)
+    tensors), the controller's RTIState, its IPM warm start and `extra`
+    included. The disturbance generator is not a tensor and is shared by the
+    batch: the result keeps `a`'s. A reset scenario therefore continues the
+    batch's draw stream instead of restarting one of its own; the RL env and
+    the BO objective draw nothing from it (they run without disturbances)."""
+    if isinstance(a, torch.Tensor):
+        return torch.where(mask.view((-1,) + (1,) * (a.dim() - 1)), a, b)
+    if isinstance(a, tuple):
+        return type(a)(*(select_carry(mask, x, y) for x, y in zip(a, b)))
+    return a
+
+
 def make_generator(seed: int, device) -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed(int(seed))
@@ -99,13 +117,15 @@ class ClosedLoopSim:
         )
 
     # ------------------------------------------------------------------
-    def step(self, carry: SimCarry, w_deriv_play, w_se_play, mods=None) -> tuple:
+    def step(self, carry: SimCarry, w_deriv_play, w_se_play, traj=None, mods=None) -> tuple:
         """One closed-loop step for every scenario; the playback inputs are
         (B, 7) recorded disturbances, used when the sim was built with
-        playback=True. `mods` (a QPMods) overrides QP weights and bounds for
-        this solve."""
+        playback=True. `traj` overrides the sim's lap, e.g. with one lap per
+        scenario (track/trajectory.py::select_laps); `mods` (a QPMods)
+        overrides QP weights and bounds for this solve."""
         B = carry.x_sim.shape[0]
-        _, window = planner_emulator(self.traj, carry.pose, self.Tp, self.N + 1)
+        traj = self.traj if traj is None else traj
+        _, window = planner_emulator(traj, carry.pose, self.Tp, self.N + 1)
         if carry.extra is not None:
             out, ctrl_state, extra = self.controller.solve_with_extra(
                 carry.ctrl_state, carry.extra, carry.x_est, window, mods=mods)

@@ -10,6 +10,9 @@ Batched port of tum_control_tpu/track/planner.py::planner_emulator:
   3. linear resampling of that window to `n_out` points; yaw is
      interpolated circularly per segment.
 
+Every scenario may drive a lap of its own (the JAX package's planner under
+`vmap` over a stack of laps): the lap's tensors then carry the batch axis.
+
 The JAX package gathers the window endpoints with a bf16 one-hot matmul, a
 workaround for slow gathers on the TPU; a plain gather is exact here.
 """
@@ -44,10 +47,21 @@ def planner_emulator(traj: RefTrajectory, pose_xy, Tp: float, n_out: int) -> tup
     """Return (closest_point_index (B,), RefWindow with n_out points).
 
     `pose_xy`: (B, 2) current vehicle positions. `n_out` = N + 1 nodes.
+    `traj` is one lap for every scenario, or one lap per scenario (tensors
+    (B, ...) and a (B,) `n_valid`, track/trajectory.py::select_laps); all
+    index arithmetic is then modulo each scenario's own lap length.
     """
-    M = traj.n_valid
-    dx = traj.pos[None, :, 0] - pose_xy[:, 0:1]
-    dy = traj.pos[None, :, 1] - pose_xy[:, 1:2]
+    if traj.pos.dim() == 3:
+        rows = torch.arange(pose_xy.shape[0], device=pose_xy.device)[:, None]
+        take = lambda a, i: a[rows, i]
+        lap = lambda a: a
+        M = traj.n_valid[:, None]
+    else:
+        take = lambda a, i: a[i]
+        lap = lambda a: a[None]
+        M = traj.n_valid
+    dx = lap(traj.pos[..., 0]) - pose_xy[:, 0:1]
+    dy = lap(traj.pos[..., 1]) - pose_xy[:, 1:2]
     d2 = dx * dx + dy * dy                       # (B, Mpad)
     c = torch.argmin(d2, dim=1)                  # (B,)
 
@@ -55,13 +69,13 @@ def planner_emulator(traj: RefTrajectory, pose_xy, Tp: float, n_out: int) -> tup
     # P[M] - P[c+1] + P[K-(M-c-1)] after it; n_app = first K with
     # walkcum(K) > Tp = 1 + #{K >= 1 : walkcum(K) <= Tp}
     P = traj.cum_time
-    idx = torch.arange(P.shape[0], device=P.device)[None, :]
+    idx = torch.arange(P.shape[-1], device=P.device)[None, :]
     cc = c[:, None]
-    target = P[c + 1][:, None] + Tp
+    target = take(P, cc + 1) + Tp
     mask_u = (idx >= cc + 2) & (idx <= M) & (idx <= cc + MAX_WINDOW)
-    count_u = torch.sum(mask_u & (P[None, :] <= target), dim=1)
+    count_u = torch.sum(mask_u & (lap(P) <= target), dim=1)
     mask_w = (idx >= 1) & (idx <= MAX_WINDOW - 1 + cc + 1 - M)
-    count_w = torch.sum(mask_w & (P[None, :] <= target - P[M]), dim=1)
+    count_w = torch.sum(mask_w & (lap(P) <= target - take(P, M)), dim=1)
     n_pts = 2 + count_u + count_w                # nearest point + n_app segments
 
     # resample to n_out points over fractional window indices [0, n_pts-1]
@@ -77,7 +91,7 @@ def planner_emulator(traj: RefTrajectory, pose_xy, Tp: float, n_out: int) -> tup
     g0 = torch.remainder(cc + i0, M)
     g1 = torch.remainder(cc + i1, M)
     w0, w1 = 1.0 - frac, frac
-    pos = traj.pos[g0] * w0[..., None] + traj.pos[g1] * w1[..., None]
-    v = traj.v[g0] * w0 + traj.v[g1] * w1
-    yaw = _circular_lerp(traj.yaw[g0], traj.yaw[g1], frac)
+    pos = take(traj.pos, g0) * w0[..., None] + take(traj.pos, g1) * w1[..., None]
+    v = take(traj.v, g0) * w0 + take(traj.v, g1) * w1
+    yaw = _circular_lerp(take(traj.yaw, g0), take(traj.yaw, g1), frac)
     return c, RefWindow(pos=pos, yaw=yaw, v=v)

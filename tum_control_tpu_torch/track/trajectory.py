@@ -5,6 +5,10 @@ The per-point segment traversal time and its prefix sums are computed once
 in float64 numpy and then cast to the working dtype:
 
     seg_time[j] = ||p[j] - p[j-1 mod M]|| / ref_v[j],  cum_time = [0, cumsum(seg_time)]
+
+Several laps stack into one padded RefTrajectory (`stack_trajectories`);
+`select_laps` gathers one lap per scenario from it, for the closed loops
+whose scenarios drive different laps (the RL env, the BO objective).
 """
 from __future__ import annotations
 
@@ -18,18 +22,53 @@ from tum_control_tpu_torch.device import resolve_device
 
 
 class RefTrajectory(NamedTuple):
+    """One lap, or one padded lap per stack entry or scenario: then every
+    tensor carries a leading (L, ...) or (B, ...) axis and `n_valid` is an
+    int64 tensor of the real lengths."""
+
     pos: torch.Tensor       # (M, 2) pos_x, pos_y
     yaw: torch.Tensor       # (M,)   ref_yaw (wrapped to [0, 2pi))
     v: torch.Tensor         # (M,)   ref_v
     acc: torch.Tensor       # (M,)   ref_acc
     seg_time: torch.Tensor  # (M,)   traversal time of segment ending at j
     cum_time: torch.Tensor  # (M+1,) prefix sums: cum_time[i] = sum(seg_time[:i])
-    n_valid: int            # number of real points (<= M when padded)
+    n_valid: object         # int: number of real points (<= M when padded)
 
     @property
     def n_points(self) -> int:
         """Array length."""
-        return self.pos.shape[0]
+        return self.pos.shape[-2]
+
+
+def stack_trajectories(trajs) -> RefTrajectory:
+    """Pad laps to a common length and stack them along a leading axis.
+
+    Padded slots get far-away positions (never the nearest point), huge
+    segment times and prefix sums (never inside a planner window); `n_valid`
+    (L,) keeps each real length, which the planner's modular index
+    arithmetic uses."""
+    M = max(int(t.n_valid) for t in trajs)
+
+    def pad(a, fill, target=M):
+        extra = target - a.shape[0]
+        if extra == 0:
+            return a
+        return torch.cat([a, a.new_full((extra,) + a.shape[1:], fill)])
+
+    fills = dict(pos=1e7, yaw=0.0, v=1.0, acc=0.0, seg_time=1e7, cum_time=1e14)
+    fields = {
+        k: torch.stack([pad(getattr(t, k), fill, M + 1 if k == "cum_time" else M)
+                        for t in trajs])
+        for k, fill in fills.items()
+    }
+    n_valid = torch.tensor([int(t.n_valid) for t in trajs], device=trajs[0].pos.device)
+    return RefTrajectory(n_valid=n_valid, **fields)
+
+
+def select_laps(stacked: RefTrajectory, lap) -> RefTrajectory:
+    """One lap of a stack per scenario: `lap` (B,) lap indices -> a
+    RefTrajectory of (B, ...) tensors with a (B,) `n_valid`."""
+    return RefTrajectory(*(a[lap] for a in stacked))
 
 
 class Track(NamedTuple):
