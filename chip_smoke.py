@@ -11,8 +11,9 @@ Phases (any failure raises and the script exits non-zero):
      scenarios; nominal: N = 38, nx = 8, nu = 2, nz = 76, 78 general rows;
      K1 also at SNMPC's 88 elements per scenario and one RK4 substep; K6 at
      SNMPC's nominal tail, 33 stages from the carry of its 5 head stages;
-     K8 on K2's inputs, K7 on K3's and K5's, since no path launches them)
-     on inputs from a seeded numpy generator, holds it against its plain
+     K8 on K2's inputs, K7 on K3's and K5's, since no path launches them;
+     K1-K5 also at the entry paths' batches, ENTRY_BATCHES: one scenario
+     and 52) on inputs from a seeded numpy generator, holds it against its plain
      PyTorch version on the same inputs (K3 and K7 also on an
      ill-conditioned IPM-shaped H, by backward error; K4 also on that H's
      factor, a late iteration's, against the float64 plain version within
@@ -43,22 +44,40 @@ Phases (any failure raises and the script exits non-zero):
      MC-EHVI with 64 samples, q = 5), then one timed objective chunk of
      128 scenarios; checks losses, rewards, parameters, artifacts,
      objectives against feasibility, trial count and hypervolume;
-  5. after all loops (a profiler session slows every later step's host
-     time), a short torch.profiler window of each loop and of one env step
-     and one short objective chunk, and the profiler's device time of each
-     kernel case of phase 2 and its library call (`profiled_ms`; the
-     `library_ms` of a library call that synchronizes with the host, so
-     that `ms` and `library_ms` are both device time);
-  6. reruns each path's first steps on the CPU (plain versions) in float64
+  5. the user-facing entry points (ENTRY), each with the counters reset
+     just before and read just after: `main`, the entry module's run_main
+     on the shipped YAML configs (one scenario, nominal NMPC, 200 steps,
+     plots off; its full_logs.npz read back: the reference's 14 arrays at
+     their shapes, finite, solve times > 0; ms per step and solves/s at
+     B = 1), `main_playback` (100 steps with both disturbance kinds,
+     recorded to full_logs.npz and replayed from it with another seed: the
+     disturbances equal, CiLX within TOL_PLAYBACK), `sweep`, the baseline
+     sweep's entry module (the 26 sets of data/F.csv x Monteblanco and LVMS,
+     52 scenarios, 100 steps; its npz and summary.csv layout), and `policy`,
+     run_policy and action_probability_trace of the new_BO_F policy (50
+     steps each; actions in [0, 26), probability rows summing to 1);
+  6. after all loops (a profiler session slows every later step's host
+     time), a torch.profiler window of PROFILE_STEPS steps of each loop, of
+     one env step, one objective chunk and `main`, and the profiler's
+     device time of each kernel case of phase 2 and its library call
+     (`profiled_ms`; the `library_ms` of a library call that synchronizes
+     with the host, so that `ms` and `library_ms` are both device time);
+  7. reruns each path's first steps on the CPU (plain versions) in float64
      and in float32 from the card's own carry at that step and holds the
      card's inputs simU to each (WMPC: and its actions to the float64
      run's); holds one env step from the card's trained-env state, and three
      (candidate, segment) objectives of the timed chunk (a feasible pair of
      each segment group and an infeasible one of group 1), against the CPU
-     float64 run from the same state;
-  7. prints the seconds each phase took, one {"kernels": [...]} line
-     (launches per path; K7 and K8, which no path launches, with 0 and
-     "path": null) and, last, the device line.
+     float64 run from the same state; and each entry path's first steps
+     (ENTRY_CPU) as the loops' are held, from the card's own carry on the
+     same closed loop at B = 1 or 52: main from HOLD_LAP_POINT, the
+     playback fed the recorded disturbances, the sweep's 52 scenarios on
+     their laps and weights, the policy across its first update (actions
+     equal, probabilities within TOL_PROB);
+  8. prints the seconds each phase took, one {"kernels": [...]} line
+     (launches per path, and per closed-loop step on the entry paths; K7
+     and K8, which no path launches, with 0 and "path": null) and, last,
+     the device line.
 
     python3 chip_smoke.py --kernels-only   # phases 1, 2 and the kernels' profiles
 
@@ -95,6 +114,11 @@ NC = NCG + NZ
 # on 5 x 11 head + 33 tail elements per scenario, K6 on the 33-stage tail
 NS1, UPH = 11, 5
 N2, COL0 = N - UPH, UPH * NU
+# K1's input states in kernel_phase: normal about lap states, by this spread
+STATE_SPREAD = np.array([0.5, 0.5, 0.05, 1, 0.1, 0.05, 0.02, 0.5])
+# the entry paths' batches, at which kernel_phase also holds K1-K5: one
+# scenario (main, main_playback, policy) and the sweep's 26 sets x 2 laps
+ENTRY_BATCHES = (1, 52)
 # per path: settle steps, timed steps, steps rerun on the CPU (WMPC: 25, so
 # that its first policy update, at step 20, falls inside)
 PATHS = {"nominal": (50, 300, 20), "snmpc": (50, 200, 10), "rnmpc": (50, 200, 10),
@@ -106,6 +130,40 @@ PATH_CONFIG = {"nominal": {}, "snmpc": dict(controller="snmpc"), "rnmpc": dict(c
                "nominal_external": dict(costfunction_type="EXTERNAL")}
 # the tuning loops (phase 4), both over the nominal MPCConfig()
 TUNING = ("ppo", "bo")
+# the user-facing entry points (phase 5), each a path of its own: main.py's
+# closed loop of one scenario (the shipped YAML configs, nominal NMPC), the
+# same recorded and replayed with both disturbance kinds, the baseline sweep
+# (26 sets of data/F.csv x 2 laps = 52 scenarios), run_policy and
+# action_probability_trace of the new_BO_F policy (one scenario). Depth is
+# cut: main 4 s of the shipped T = 100 s (200 steps), playback 2 s (100
+# steps, twice), the sweep 2 s of the reference's 40 s (100 steps), the
+# policy 1 s of a 40 s lap (50 steps, two policy updates)
+ENTRY = ("main", "main_playback", "sweep", "policy")
+MAIN_T, PLAYBACK_T, SWEEP_T, POLICY_T = 4.0, 2.0, 2.0, 1.0
+SWEEP_TRACKS = ("monteblanco", "lvms")
+# per entry path: steps on the card before the CPU re-solve, steps re-solved
+# (the policy's: its update period, then the update and 5 steps after it)
+ENTRY_CPU = {"main": (0, 10), "main_playback": (0, 10), "sweep": (0, 5), "policy": (20, 6)}
+# main's and the policy's CPU holds start at this point of the Monteblanco
+# lap, its first corner ~16 s in (yaw rate ~0.3 rad/s at 11 m/s), in the
+# state batched_scenarios gives it. Both runs start on the straight, where
+# the steering rate (1e-4 - 1e-3 rad/s) lies within 20-200x of float32's
+# floor on it (~5e-6 rad/s between the CPU's float32 and float64 steps
+# from one carry): held at TOL_U of such a window's own max, the check
+# would measure float32, not the kernels
+HOLD_LAP_POINT = 215
+WMPC_MODEL = "data/wmpc_models/new_BO_F"
+# the replay's plant trace against the recording's: max |difference| within
+# TOL_PLAYBACK of max |CiLX| (the same float32 steps from the same
+# disturbances; the playback branch skips the draws)
+TOL_PLAYBACK = 1e-4
+# the 14 arrays of the reference Logger's full_logs.npz and their shapes at
+# n steps
+FULL_LOGS = {"MPC_SimX": (1, 8), "CiLX": (1, 7), "simU": (0, 2), "simREF": (0, 4),
+             "simSolverDebug": (0, 5), "sim_disturbance_derivatives": (0, 7),
+             "sim_disturbance_state_estimation": (0, 7), "a_lat": (1,), "dev_lat": (0,),
+             "dev_long": (0,), "dev_vel": (0,), "dev_yaw": (0,), "t": (0,),
+             "DisturbedX": (1, 7)}
 # the kernels each path must launch; every other counter must stay 0
 NOMINAL_KERNELS = ("linearize", "condense", "cholesky", "chol_solve", "ipm_iteration")
 PATH_KERNELS = {
@@ -116,6 +174,7 @@ PATH_KERNELS = {
     "nominal_external": NOMINAL_KERNELS,
     "ppo": NOMINAL_KERNELS,
     "bo": NOMINAL_KERNELS,
+    **{path: NOMINAL_KERNELS for path in ENTRY},
 }
 # the tuning loops at full width, cut in depth (phase 4)
 TRACKS_PPO = ("monteblanco", "modena")
@@ -124,7 +183,7 @@ PPO = dict(n_envs=16, n_steps=8, batch_size=64, n_epochs=2)
 PPO_UPDATES, PPO_MPC_STEPS = 2, 20
 BO = dict(n_initial=8, batch_size=5, n_mc=64)
 BO_MAX_STEPS, BO_CHUNK = 150, 128
-# closed-loop steps in the tuning loops' profile windows
+# closed-loop steps in every profile window
 PROFILE_STEPS = 5
 # one env step (20 closed-loop steps) from the card's env state, against the
 # CPU float64 step from the same state: |obs| and reward within TOL_ENV
@@ -163,8 +222,10 @@ LATE_FACTOR = 2.0
 # from the same carry: max |card - cpu| <= TOL_U * max |simU f64| per input.
 # One float32 step lies within 3e-4 (nominal) and 2e-4 (SNMPC) of the
 # float64 step on this scale
-TOL_U = {"nominal": 2e-3, "snmpc": 2e-3, "rnmpc": 2e-3, "wmpc_rnmpc": 2e-3,
-         "nominal_external": 2e-3}
+TOL_U = 2e-3
+# the card's WMPC action probabilities against the CPU float64 step's from
+# the same carry, absolute (they lie in [0, 1], as TOL_ENV's observations)
+TOL_PROB = 1e-3
 # A (scenario, step) where the CPU's own float32 step lies beyond TOL_U of its
 # float64 step is a state float32 cannot resolve: a soft row within one float32
 # ulp of its bound lands on the other side, the polish's semismooth Newton step
@@ -309,10 +370,10 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def tri_bytes(n):
-    """Bytes of the lower triangles of B float32 n x n matrices: all that a
-    factorization needs of H and a triangular solve of L."""
-    return B * n * (n + 1) // 2 * 4
+def tri_bytes(n, batch=B):
+    """Bytes of the lower triangles of `batch` float32 n x n matrices: all
+    that a factorization needs of H and a triangular solve of L."""
+    return batch * n * (n + 1) // 2 * 4
 
 
 def compare(name, outputs):
@@ -479,40 +540,113 @@ def kernel_phase(dev):
             f"sleep; one launch with the host path {ms_launch:.4f})"
             f" | plain {plain_ms:.3f} ms | library {lib} | bound {b_ms:.5f} ms ({b_by})")
 
+    def lap_inputs(batch):
+        """K1's (batch, N, nx + nu) float32 inputs: states spread about
+        curvature-consistent starts along the lap, random inputs."""
+        x0, _ = batched_scenarios(traj, batch, dtype=torch.float64)
+        X = x0.numpy()[:, None, :] + rng.normal(0, 1, (batch, N, NX)) * STATE_SPREAD
+        U = rng.normal(0, 1, (batch, N, NU)) * [1.0, 0.1]
+        return x0, torch.tensor(np.concatenate([X, U], axis=2), dtype=torch.float32, device=dev)
+
+    def hold_linearize(XU, lin, case):
+        F, J = linearize_cuda(XU, lin.prm, lin.n_sub)
+        Fp, Jp = linearize_ref(XU, lin.step, NX)
+        err = compare("linearize", [("F", F, Fp)] + [(f"J[..., {c}]", J[..., c], Jp[..., c])
+                                                     for c in range(NX + NU)])
+        # operations per element: 4 model evaluations per RK4 substep of ~112
+        # primitive operations, and the 10 input directions' tangents at ~2
+        # operations per primitive each
+        ops = XU.shape[0] * XU.shape[1] * 4 * lin.n_sub * 112 * (1 + 2 * 10)
+        record("linearize", err, lambda: linearize_cuda(XU, lin.prm, lin.n_sub),
+               lambda: linearize_ref(XU, lin.step, NX), nbytes(XU, F, J), ops, case=case,
+               plain_runs=3)
+        return J
+
+    def condense_inputs(J):
+        """K2's inputs on K1's sensitivities J: (A, B, xi, d0)."""
+        batch = J.shape[0]
+        xi = torch.tensor(rng.normal(0, 0.01, (batch, N, NX)), dtype=torch.float32, device=dev)
+        d0 = torch.tensor(rng.normal(0, 0.1, (batch, NX)), dtype=torch.float32, device=dev)
+        return J[..., :NX].contiguous(), J[..., NX:].contiguous(), xi, d0
+
+    def condense_ops(batch):
+        # A_k Gam_k needs nx^2 (k nu) FMAs (columns past k nu are zero), e: nx^2
+        return batch * sum(2 * NX * NX * (k * NU + 1) + 2 * NX * NU for k in range(N))
+
+    def hold_condense(args2, case):
+        e, Gam = condense_cuda(*args2)
+        ep, Gamp = condense_ref(*args2)
+        err = compare("condense", [("e", e, ep), ("Gamma", Gam, Gamp)])
+        record("condense", err, functools.partial(condense_cuda, *args2),
+               functools.partial(condense_ref, *args2), nbytes(*args2, e, Gam),
+               condense_ops(args2[0].shape[0]), case=case)
+        return e, Gam
+
+    chol = {"cholesky": (cholesky_cuda, cholesky_ref),
+            "cholesky_unblocked": (cholesky_unblocked_cuda, cholesky_unblocked_ref)}
+    solve = {"chol_solve": (chol_solve_cuda, chol_solve_ref),
+             "chol_solve_unblocked": (chol_solve_unblocked_cuda, chol_solve_unblocked_ref)}
+
+    def chol_ops(batch):
+        return batch * (NZ ** 3 / 3 + NZ ** 2)
+
+    def hold_cholesky(name, H, case):
+        """A factor kernel against its plain version; bytes: the lower
+        triangle of H read, the whole L written (its strict upper triangle is
+        0). torch.linalg.cholesky_ex is the library yardstick;
+        torch.linalg.cholesky, which synchronizes with the host on CUDA, is
+        timed beside it per call."""
+        kern, plain = chol[name]
+        Lk = kern(H)
+        err = compare(name, [("L", Lk, plain(H))])
+        check(int(torch.count_nonzero(torch.triu(Lk, 1))) == 0, f"{name}: nonzero upper triangle")
+        record(name, err, functools.partial(kern, H), functools.partial(plain, H),
+               tri_bytes(NZ, H.shape[0]) + nbytes(Lk), chol_ops(H.shape[0]),
+               library=functools.partial(torch.linalg.cholesky_ex, H),
+               library_sync=functools.partial(torch.linalg.cholesky, H), case=case)
+        return Lk
+
+    def hold_solve(name, Lk, b, case):
+        """A solve kernel on its factor; it reads L's lower triangle and b,
+        writes x."""
+        kern, plain = solve[name]
+        x = kern(Lk, b)
+        err = compare(name, [("x", x, plain(Lk, b))])
+        record(name, err, functools.partial(kern, Lk, b), functools.partial(plain, Lk, b),
+               tri_bytes(NZ, b.shape[0]) + nbytes(b, x), b.shape[0] * 2 * NZ * NZ,
+               library=functools.partial(torch.cholesky_solve, b[..., None], Lk), case=case)
+
+    def ipm_ops(batch):
+        # two directions of con_tmul + fwd/bwd substitution + con_mul, plus
+        # ~60 elementwise operations per constraint row
+        return batch * (2 * (4 * NCG * NZ + 2 * NZ * NZ) + 60 * NC)
+
+    def hold_ipm(qp, carry, nt, Lk, case):
+        """K4's first IPM iteration of `qp` on the factor Lk; of L only its
+        lower triangle is read."""
+        args = k4_args(qp, carry, nt, Lk)
+        kc, ksig, kunc = fused_iteration_cuda(*args, carry)
+        pc, psig, punc = iteration_ref(*args, carry)
+        err = compare("ipm_iteration", list(zip(CARRY + ("sigma",), kc + (ksig,), pc + (psig,))))
+        check(torch.equal(kunc, punc), f"ipm_iteration/{case}: unconverged flags differ")
+        record("ipm_iteration", err, functools.partial(fused_iteration_cuda, *args, carry),
+               functools.partial(iteration_ref, *args, carry),
+               tri_bytes(NZ, Lk.shape[0]) + nbytes(*args[1:], *carry, *kc, ksig, kunc),
+               ipm_ops(Lk.shape[0]), case=case)
+
     # K1: linearize at curvature-consistent states spread along the lap
     ctrl = build_controller(MPCConfig(), SimConfig(), device=dev)
     lr = ctrl.engine.funcs.lin_rollout
     traj = load_ref_trajectory(os.path.join(SimConfig().trajectory_path,
                                             SimConfig().ref_traj_file), torch.float64,
                                device="cpu")
-    x0, _ = batched_scenarios(traj, B, dtype=torch.float64)
-    X = x0.numpy()[:, None, :] + rng.normal(0, 1, (B, N, NX)) * [0.5, 0.5, 0.05, 1, 0.1, 0.05,
-                                                                   0.02, 0.5]
-    U = rng.normal(0, 1, (B, N, NU)) * [1.0, 0.1]
-    XU = torch.tensor(np.concatenate([X, U], axis=2), dtype=torch.float32, device=dev)
-    F, J = linearize_cuda(XU, lr.prm, lr.n_sub)
-    Fp, Jp = linearize_ref(XU, lr.step, NX)
-    err = compare("linearize", [("F", F, Fp)] + [(f"J[..., {c}]", J[..., c], Jp[..., c])
-                                                 for c in range(NX + NU)])
-    # operations per element: 12 model evaluations of ~112 primitive
-    # operations, and the 10 input directions' tangents at ~2 operations
-    # per primitive each
-    ops = B * N * 12 * 112 * (1 + 2 * 10)
-    record("linearize", err, lambda: linearize_cuda(XU, lr.prm, lr.n_sub),
-           lambda: linearize_ref(XU, lr.step, NX), nbytes(XU, F, J), ops, plain_runs=3)
+    x0, XU = lap_inputs(B)
+    J = hold_linearize(XU, lr, "nominal")
 
     # K2: condense the sensitivities K1 just produced
-    A_ = J[..., :NX].contiguous()
-    B_ = J[..., NX:].contiguous()
-    xi = torch.tensor(rng.normal(0, 0.01, (B, N, NX)), dtype=torch.float32, device=dev)
-    d0 = torch.tensor(rng.normal(0, 0.1, (B, NX)), dtype=torch.float32, device=dev)
-    e, Gam = condense_cuda(A_, B_, xi, d0)
-    ep, Gamp = condense_ref(A_, B_, xi, d0)
-    err = compare("condense", [("e", e, ep), ("Gamma", Gam, Gamp)])
-    # A_k Gam_k needs nx^2 (k nu) FMAs (columns past k nu are zero), e: nx^2
-    ops = B * sum(2 * NX * NX * (k * NU + 1) + 2 * NX * NU for k in range(N))
-    record("condense", err, lambda: condense_cuda(A_, B_, xi, d0),
-           lambda: condense_ref(A_, B_, xi, d0), nbytes(A_, B_, xi, d0, e, Gam), ops)
+    args2 = condense_inputs(J)
+    A_, B_, xi, d0 = args2
+    e, Gam = hold_condense(args2, "nominal")
 
     # K8 on the same inputs: one augmented (B, N+1, nx, nz+1) output, held
     # per output (e, Gamma); the same active-triangle operation count
@@ -524,7 +658,7 @@ def kernel_phase(dev):
         f"max |Gamma8 - Gamma2| {float((G8 - Gam).abs().max()):.3e}")
     record("condense_mxu", err, lambda: condense_mxu_cuda(A_, B_, xi, d0),
            lambda: condense_mxu_ref(A_, B_, xi, d0),
-           nbytes(A_, B_, xi, d0) + B * (N + 1) * NX * (NZ + 1) * 4, ops)
+           nbytes(A_, B_, xi, d0) + B * (N + 1) * NX * (NZ + 1) * 4, condense_ops(B))
     say(f"[condense_mxu] K2 again in the same place: "
         f"{device_ms(lambda: condense_cuda(A_, B_, xi, d0)):.5f} ms device")
 
@@ -534,21 +668,13 @@ def kernel_phase(dev):
     sctrl = build_controller(MPCConfig(controller="snmpc"), SimConfig(), device=dev)
     slr = sctrl.lin_roll8
     fan = sctrl._fan(x0.to(dev, torch.float32)).reshape(B, NS1, NX).double().cpu().numpy()
-    Xs = fan[:, None] + rng.normal(0, 1, (B, N, NS1, NX)) * [0.5, 0.5, 0.05, 1, 0.1, 0.05,
-                                                             0.02, 0.5]
+    Xs = fan[:, None] + rng.normal(0, 1, (B, N, NS1, NX)) * STATE_SPREAD
     Us = rng.normal(0, 1, (B, N, NU)) * [1.0, 0.1]
     head = np.concatenate([Xs[:, :UPH], np.broadcast_to(Us[:, :UPH, None], (B, UPH, NS1, NU))],
                           axis=-1).reshape(B, UPH * NS1, NX + NU)
     tail = np.concatenate([Xs[:, UPH:, 0], Us[:, UPH:]], axis=-1)
     XUs = torch.tensor(np.concatenate([head, tail], axis=1), dtype=torch.float32, device=dev)
-    Fs, Js = linearize_cuda(XUs, slr.prm, slr.n_sub)
-    Fsp, Jsp = linearize_ref(XUs, slr.step, NX)
-    err = compare("linearize", [("F", Fs, Fsp)] + [(f"J[..., {c}]", Js[..., c], Jsp[..., c])
-                                                   for c in range(NX + NU)])
-    # one substep: 4 model evaluations per element instead of 12
-    record("linearize", err, lambda: linearize_cuda(XUs, slr.prm, slr.n_sub),
-           lambda: linearize_ref(XUs, slr.step, NX), nbytes(XUs, Fs, Js),
-           B * XUs.shape[1] * 4 * 112 * (1 + 2 * 10), case="snmpc", plain_runs=3)
+    Js = hold_linearize(XUs, slr, "snmpc")
 
     # K6: SNMPC's nominal tail from a head carry, on the tail rows' K1
     # sensitivities; Gamma0 is nonzero in its first COL0 columns, as the
@@ -574,36 +700,11 @@ def kernel_phase(dev):
     qp = random_qp(rng, dev, B)
     carry, nt, H = ipm_start(qp)
 
-    # K3 and K7 on the QP's H, each against its plain version; bytes: the
-    # lower triangle of H read, the whole L written (its strict upper
-    # triangle is 0). torch.linalg.cholesky_ex is the library yardstick;
-    # torch.linalg.cholesky, which synchronizes with the host on CUDA, is
-    # timed beside it per call
-    ops = B * (NZ ** 3 / 3 + NZ ** 2)
-    chol = {"cholesky": (cholesky_cuda, cholesky_ref),
-            "cholesky_unblocked": (cholesky_unblocked_cuda, cholesky_unblocked_ref)}
-    factor = {}
-    for name, (kern, plain) in chol.items():
-        factor[name] = Lk = kern(H)
-        err = compare(name, [("L", Lk, plain(H))])
-        check(int(torch.count_nonzero(torch.triu(Lk, 1))) == 0, f"{name}: nonzero upper triangle")
-        record(name, err, functools.partial(kern, H), functools.partial(plain, H),
-               tri_bytes(NZ) + nbytes(Lk), ops,
-               library=functools.partial(torch.linalg.cholesky_ex, H),
-               library_sync=functools.partial(torch.linalg.cholesky, H))
-
-    # K5 and the K7 solve on their factors; the solve reads L's lower
-    # triangle and b, writes x
+    # K3 and K7 on the QP's H, K5 and the K7 solve on their factors
+    factor = {name: hold_cholesky(name, H, "nominal") for name in chol}
     b = torch.tensor(rng.standard_normal((B, NZ)), dtype=torch.float32, device=dev)
-    solve = {"chol_solve": (chol_solve_cuda, chol_solve_ref, factor["cholesky"]),
-             "chol_solve_unblocked": (chol_solve_unblocked_cuda, chol_solve_unblocked_ref,
-                                      factor["cholesky_unblocked"])}
-    for name, (kern, plain, Lk) in solve.items():
-        x = kern(Lk, b)
-        err = compare(name, [("x", x, plain(Lk, b))])
-        record(name, err, functools.partial(kern, Lk, b), functools.partial(plain, Lk, b),
-               tri_bytes(NZ) + nbytes(b, x), B * 2 * NZ * NZ,
-               library=functools.partial(torch.cholesky_solve, b[..., None], Lk))
+    hold_solve("chol_solve", factor["cholesky"], b, "nominal")
+    hold_solve("chol_solve_unblocked", factor["cholesky_unblocked"], b, "nominal")
     L = factor["cholesky"]
 
     # K3 and K7 on an ill-conditioned IPM-shaped H (cond up to ~1e8), where
@@ -622,21 +723,11 @@ def kernel_phase(dev):
               f"{name}/ill_conditioned: backward error {be:.3e} beyond the bound")
         e = float((Lk.double() - Lp.double()).abs().max())
         record(name, (e, {"L": e / float(Lp.abs().max())}), functools.partial(kern, Hill),
-               functools.partial(plain, Hill), tri_bytes(NZ) + nbytes(Lk), ops,
+               functools.partial(plain, Hill), tri_bytes(NZ) + nbytes(Lk), chol_ops(B),
                library=functools.partial(torch.linalg.cholesky_ex, Hill), case="ill_conditioned",
                extra=dict(backward_err=be, plain_backward_err=be_plain))
 
-    args = k4_args(qp, carry, nt, L)
-    kc, ksig, kunc = fused_iteration_cuda(*args, carry)
-    pc, psig, punc = iteration_ref(*args, carry)
-    err = compare("ipm_iteration", list(zip(CARRY + ("sigma",), kc + (ksig,), pc + (psig,))))
-    check(torch.equal(kunc, punc), "ipm_iteration: unconverged flags differ")
-    # two directions of con_tmul + fwd/bwd substitution + con_mul, plus ~60
-    # elementwise operations per constraint row; of L only its lower triangle
-    ops = B * (2 * (4 * NCG * NZ + 2 * NZ * NZ) + 60 * NC)
-    record("ipm_iteration", err, lambda: fused_iteration_cuda(*args, carry),
-           lambda: iteration_ref(*args, carry),
-           tri_bytes(NZ) + nbytes(*args[1:], *carry, *kc, ksig, kunc), ops)
+    hold_ipm(qp, carry, nt, L, "nominal")
 
     # K4 at a late iteration: the same QP and carry with the float64 factor of
     # the ill-conditioned H above (sigma up to 10^6.5 on the hard rows)
@@ -666,8 +757,21 @@ def kernel_phase(dev):
         f"largest plain f32 - f64 over the outputs {max(plain_vs64.values()):.3e}")
     record("ipm_iteration", (err, rel), functools.partial(fused_iteration_cuda, *args_l, carry),
            functools.partial(iteration_ref, *args_l, carry),
-           tri_bytes(NZ) + nbytes(*args_l[1:], *carry, *kc, ksig, kunc), ops,
+           tri_bytes(NZ) + nbytes(*args_l[1:], *carry, *kc, ksig, kunc), ipm_ops(B),
            case="late_iteration", extra=dict(err_vs_f64=vs64, plain_err_vs_f64=plain_vs64))
+
+    # K1-K5 at the entry paths' batches, on inputs drawn as above: B = 1
+    # (a grid of one block, most of its lanes idle) and the sweep's 52
+    for batch in ENTRY_BATCHES:
+        case = f"b{batch}"
+        _, XUb = lap_inputs(batch)
+        hold_condense(condense_inputs(hold_linearize(XUb, lr, case)), case)
+        qpb = random_qp(rng, dev, batch)
+        carryb, ntb, Hb = ipm_start(qpb)
+        Lb = hold_cholesky("cholesky", Hb, case)
+        hold_solve("chol_solve", Lb, torch.tensor(rng.standard_normal((batch, NZ)),
+                                                  dtype=torch.float32, device=dev), case)
+        hold_ipm(qpb, carryb, ntb, Lb, case)
     return results, jobs
 
 
@@ -1069,50 +1173,63 @@ def loop_phase(dev, path):
             f"action histogram over (scenario, step) {hist.tolist()}")
     else:
         check(bool((act == -1).all()), f"{path}: actions logged without WMPC")
-    return dict(launches=launches, sim=sim, carry0=carry0, log_settle=log_settle, carry=carry,
-                step_s=(t2 - t1) / steps)
+    return dict(launches=launches, sim=sim, carry0=carry0, carry=carry, step_s=(t2 - t1) / steps)
 
 
-def cpu_phase(path, sim, carry0, log_settle):
-    """Each of the path's first CPU steps of the card's run again on the
-    CPU, where the port takes its plain versions, in float32 and float64
-    from the card's own carry at that step: the
-    card's simU is held to each within TOL_U, in every scenario and step,
-    except that where the CPU's float32 step itself lies beyond TOL_U of
-    its float64 step (a float32 flip), the card is held to the float32
-    step alone, within the largest card - cpu f64 of the other pairs.
+def cpu_phase(path, sim, carry, n, sim_cfg, mpc_cfg, inputs=None):
+    """`n` steps of the card's `sim` from its `carry` (on the card), each
+    again on the CPU, where the port takes its plain versions, in float32
+    and float64 (simulations of `sim_cfg`, `mpc_cfg`) from the card's own
+    carry at that step: the card's simU is held to each within TOL_U of the
+    window's max |simU f64| per input, in every scenario and step, except
+    that where the CPU's float32 step itself lies beyond TOL_U of its
+    float64 step (a float32 flip), the card is held to the float32 step
+    alone, within the largest card - cpu f64 of the other pairs. Under WMPC
+    the card's actions must equal the CPU float64 run's and its action
+    probabilities lie within TOL_PROB of them. `inputs(sim, carry, k)`
+    gives step k's disturbance rows and keyword arguments (per-scenario laps
+    and weights) for `sim`, the card's or a CPU one; by default none.
 
     A free run from the same initial states is no such yardstick: within 20
     steps a few scenarios of two float32 runs drift apart by O(1) in jerk
     (a 3-iteration IPM per step amplifies roundoff along the trajectory)."""
     from tum_control_tpu_torch.api import build_simulation
-    from tum_control_tpu_torch.config import MPCConfig, SimConfig
 
-    n = PATHS[path][2]
-    wmpc = PATH_CONFIG[path].get("enable_WMPC", False)
+    wmpc = mpc_cfg.enable_WMPC
     t0 = time.perf_counter()
     f32, f64 = torch.float32, torch.float64
     dts = (f32, f64)
-    cpu = {dt: build_simulation(SimConfig(sim_mode=0), MPCConfig(**PATH_CONFIG[path]),
-                                device="cpu", dtype=dt)[0] for dt in dts}
-    carry = move_carry(carry0, log_settle.simU.device, f32)
-    zero = torch.zeros_like(carry.x_sim)
+    cpu = {dt: build_simulation(sim_cfg, mpc_cfg, device="cpu", dtype=dt)[0] for dt in dts}
+
+    def step(s, c, k):
+        if inputs is None:
+            zero = torch.zeros_like(c.x_sim)
+            return s.step(c, zero, zero)
+        w_d, w_s, kw = inputs(s, c, k)
+        return s.step(c, w_d, w_s, **kw)
+
     U = {"card": [], **{dt: [] for dt in dts}}
     acts = {"card": [], f64: []}
+    probs = {"card": [], f64: []}
     margins = []
-    for _ in range(n):
+    for k in range(n):
         here = move_carry(carry, "cpu", f32)
-        carry, lg = sim.step(carry, zero, zero)
+        carry, lg = step(sim, carry, k)
         U["card"].append(lg.simU.double().cpu())
         acts["card"].append(lg.wmpc_action.cpu())
+        if wmpc:
+            probs["card"].append(
+                sim.controller.policy.action_probabilities(carry.extra.obs).double().cpu())
         for dt in dts:
-            z = torch.zeros_like(here.x_sim, dtype=dt)
-            c_dt, lg_dt = cpu[dt].step(move_carry(here, "cpu", dt), z, z)
+            c_dt, lg_dt = step(cpu[dt], move_carry(here, "cpu", dt), k)
             U[dt].append(lg_dt.simU.double())
             if dt == f64:
                 acts[f64].append(lg_dt.wmpc_action)
+                if not wmpc:
+                    continue
                 ctrl = cpu[f64].controller
-                if wmpc and bool((here.extra.steps >= ctrl.period).any()):
+                probs[f64].append(ctrl.policy.action_probabilities(c_dt.extra.obs))
+                if bool((here.extra.steps >= ctrl.period).any()):
                     # a policy update this step: how far the argmax is from a tie
                     top2 = torch.topk(ctrl.policy.logits(c_dt.extra.obs), 2).values
                     margins.append(float((top2[:, 0] - top2[:, 1]).min()))
@@ -1125,12 +1242,17 @@ def cpu_phase(path, sim, carry0, log_settle):
             f"{len(margins)} policy update(s) in the window, smallest top-2 logit margin "
             f"{min(margins):.4e}")
         check(same, f"{path}: the card's WMPC actions differ from the CPU float64 run's")
+        gap = float((torch.stack(probs["card"]) - torch.stack(probs[f64])).abs().max())
+        say(f"[cpu/{path}] max |action probability card - cpu f64| {gap:.3e} "
+            f"(tol {TOL_PROB:.0e})")
+        check(gap <= TOL_PROB, f"{path}: the card's action probabilities {gap:.3e} from the "
+                               f"CPU float64 run's")
     scale = U[f64].abs().amax(dim=(0, 1))
-    say(f"[cpu/{path}] {n} steps x {B} scenarios, each from the card's carry, on the CPU "
-        f"in {time.perf_counter() - t0:.1f} s; max |simU f64| per input {scale.tolist()}")
+    say(f"[cpu/{path}] {n} steps x {U[f64].shape[0]} scenarios, each from the card's carry, on "
+        f"the CPU in {time.perf_counter() - t0:.1f} s; max |simU f64| per input {scale.tolist()}")
     pairs = [("card - cpu f64", "card", f64), ("card - cpu f32", "card", f32),
              ("cpu f32 - cpu f64", f32, f64)]
-    flips = ((U[f32] - U[f64]).abs() > TOL_U[path] * scale).any(dim=2)
+    flips = ((U[f32] - U[f64]).abs() > TOL_U * scale).any(dim=2)
     held = {}
     for label, a, b in pairs:
         d = (U[a] - U[b]).abs()
@@ -1140,7 +1262,7 @@ def cpu_phase(path, sim, carry0, log_settle):
             d = d.masked_fill(flips[..., None], 0.0)
         held[label] = d.amax(dim=(0, 1))
         say(f"[cpu/{path}] max |simU {label}| per input {worst.tolist()}, "
-            f"{(worst / scale).tolist()} of max |simU| (tol {TOL_U[path]:.0e}; worst at "
+            f"{(worst / scale).tolist()} of max |simU| (tol {TOL_U:.0e}; worst at "
             f"scenario {s}, step {k}); held {(held[label] / scale).tolist()}")
     limit = float((held["card - cpu f64"] / scale).max())
     for s, k in torch.nonzero(flips).tolist():
@@ -1155,8 +1277,235 @@ def cpu_phase(path, sim, carry0, log_settle):
     check(int(flips.sum()) <= MAX_F32_FLIPS,
           f"{path}: {int(flips.sum())} float32 flips, more than {MAX_F32_FLIPS}")
     for label, worst in held.items():
-        check(bool((worst <= TOL_U[path] * scale).all()),
+        check(bool((worst <= TOL_U * scale).all()),
               f"{path}: max |simU {label}| beyond the tolerance")
+
+
+def shipped_configs(**sim_kw):
+    """The shipped EDGAR/sim_main_params.yaml and MPC_params.yaml, as
+    `python -m tum_control_tpu_torch.main` loads them, with `sim_kw` set."""
+    import dataclasses
+
+    from tum_control_tpu_torch.config import (
+        DEFAULT_CONFIG_PATH, load_mpc_config, load_sim_config,
+    )
+    sim = load_sim_config(os.path.join(DEFAULT_CONFIG_PATH, "EDGAR", "sim_main_params.yaml"))
+    mpc = load_mpc_config(os.path.join(DEFAULT_CONFIG_PATH, "EDGAR", "MPC_params.yaml"))
+    return dataclasses.replace(sim, **sim_kw), mpc
+
+
+def check_full_logs(path, n, tag):
+    """A full_logs.npz as the reference Logger writes it: the 14 names at
+    their shapes for n steps, all finite, the solve times > 0."""
+    logs = np.load(path)
+    check(sorted(logs.files) == sorted(FULL_LOGS), f"{tag}: full_logs.npz holds {logs.files}")
+    for k, (extra, *width) in FULL_LOGS.items():
+        shape = (n + extra, *width)
+        check(logs[k].shape == shape, f"{tag}: {k} has shape {logs[k].shape}, not {shape}")
+        check(bool(np.isfinite(logs[k]).all()), f"{tag}: non-finite values in {k}")
+    check(bool((logs["simSolverDebug"][:, 1] > 0).all()), f"{tag}: a solve time is not > 0")
+
+
+def entry_phase(dev, smi):
+    """The user-facing entry points on the card, each with the counters reset
+    just before and read just after: main.py's run_main (B = 1) with plots
+    off, the same recorded with both disturbance kinds and replayed from its
+    full_logs.npz with another seed, the baseline sweep's entry module (52
+    scenarios), and run_policy with action_probability_trace."""
+    import dataclasses
+    import shutil
+
+    from tum_control_tpu_torch import get_baseline_performances as sweep_entry
+    from tum_control_tpu_torch import main as entry_main
+    from tum_control_tpu_torch.eval.logger import save_logs
+    from tum_control_tpu_torch.learn.evaluation import action_probability_trace, run_policy
+    from tum_control_tpu_torch.ops.kernels import build
+
+    out = os.path.join(OUT_DIR, "entry")
+    shutil.rmtree(out, ignore_errors=True)
+    warm = entry_main.WARMUP_STEPS
+    runs = {}
+
+    # main: the shipped configs, T cut to MAIN_T
+    cfg, mpc = shipped_configs(T=MAIN_T, file_logs_name="main")
+    n = cfg.Nsim
+    build.reset_launches()
+    logs, summary, wall = entry_main.run_main(cfg, mpc, device=dev, logs_path=out,
+                                              make_plots=False)
+    launches = dict(build.LAUNCHES)
+    say(f"[entry/main] launches over {n} steps and the {warm}-step warm-up: "
+        f"{json.dumps(launches)}")
+    check_launches("main", launches)
+    (path,) = [os.path.join(out, d, "full_logs.npz") for d in os.listdir(out)
+               if d.startswith("main")]
+    check_full_logs(path, n, "main")
+    ok = summary["solver_ok_frac"]
+    check(ok >= 0.99, f"main: solver ok fraction {ok} < 0.99")
+    say(f"[entry/main] {smi}: B=1, {n} steps in {wall:.3f} s: {wall / n * 1e3:.3f} ms/step, "
+        f"{n / wall:.2f} solves/s; solver ok {ok:.4f}, |lat_dev| max "
+        f"{summary['dev_lat_max']:.4f} m, mean {summary['dev_lat_mean']:.4f} m")
+    runs["main"] = dict(launches=launches, steps=n + warm, step_s=wall / n, cfg=cfg, mpc=mpc)
+
+    # main with playback: record, then replay from the recording's file
+    rec_cfg, _ = shipped_configs(T=PLAYBACK_T, simulate_disturbances=True,
+                                 simulate_state_estimation=True, save_logs=False)
+    n = rec_cfg.Nsim
+    build.reset_launches()
+    rec, _, _ = entry_main.run_main(rec_cfg, mpc, device=dev, logs_path=out, seed=3,
+                                    make_plots=False)
+    rec_file = os.path.join(out, "recording", "full_logs.npz")
+    save_logs(rec, rec_file)
+    play_cfg = dataclasses.replace(rec_cfg, disturbance_playback=True,
+                                   playback_log_file=rec_file)
+    play, summary, wall = entry_main.run_main(play_cfg, mpc, device=dev, logs_path=out,
+                                              seed=11, make_plots=False)
+    launches = dict(build.LAUNCHES)
+    say(f"[entry/main_playback] launches over 2 x ({n} steps and the warm-up): "
+        f"{json.dumps(launches)}")
+    check_launches("main_playback", launches)
+    for k in ("sim_disturbance_derivatives", "sim_disturbance_state_estimation"):
+        check(float(np.abs(rec[k]).max()) > 0, f"main_playback: the recording's {k} is zero")
+        check(np.array_equal(play[k], rec[k]), f"main_playback: the replayed {k} differs")
+    for k, v in rec.items():
+        check(bool(np.isfinite(v).all()), f"main_playback: non-finite values in {k}")
+    gap = float(np.abs(play["CiLX"] - rec["CiLX"]).max())
+    scale = float(np.abs(rec["CiLX"]).max())
+    say(f"[entry/main_playback] {n} steps replayed in {wall:.3f} s with another seed: "
+        f"disturbances equal, max |CiLX replay - recording| {gap:.3e} ({gap / scale:.3e} of "
+        f"max |CiLX|, tol {TOL_PLAYBACK:.0e}); solver ok {summary['solver_ok_frac']:.4f}")
+    check(gap <= TOL_PLAYBACK * scale, f"main_playback: CiLX {gap:.3e} from the recording")
+    runs["main_playback"] = dict(launches=launches, steps=2 * (n + warm), cfg=play_cfg)
+
+    # the baseline sweep through its entry module
+    sweep_dir = os.path.join(out, "baseline")
+    n = int(SWEEP_T / 0.02)
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summaries = sweep_entry.main(["--T", str(SWEEP_T), "--tracks", *SWEEP_TRACKS,
+                                  "--out", sweep_dir, "--device", str(dev)])
+    sweep_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    say(f"[entry/sweep] launches over {n} steps: {json.dumps(launches)}")
+    check_launches("sweep", launches)
+    n_sets = len(summaries[0])
+    for track, summ in zip(SWEEP_TRACKS, summaries):
+        files = sorted(os.listdir(os.path.join(sweep_dir, track)))
+        check(files == sorted([f"{i}.npz" for i in range(n_sets)] + ["summary.csv"]),
+              f"sweep: {track} holds {files}")
+        for i in range(n_sets):
+            d = np.load(os.path.join(sweep_dir, track, f"{i}.npz"))
+            check(d["lat_devs"].shape == (n,) and d["simU"].shape == (n, 2)
+                  and d["status"].shape == (n,) and d["params"].shape == (7,),
+                  f"sweep: {track}/{i}.npz shapes")
+            for k in d.files:
+                check(bool(np.isfinite(d[k]).all()), f"sweep: non-finite {k} in {track}/{i}")
+        say(f"[entry/sweep] {track}: solver ok fraction over the {n_sets} sets "
+            f"{float(summ[:, 2].mean()):.4f} (lowest set {float(summ[:, 2].min()):.4f}); "
+            f"max |lat_dev| range [{float(summ[:, 0].min()):.4f}, {float(summ[:, 0].max()):.4f}]"
+            f" m")
+    say(f"[entry/sweep] {n_sets} sets x {len(SWEEP_TRACKS)} tracks = "
+        f"{n_sets * len(SWEEP_TRACKS)} scenarios x {n} steps: {sweep_s:.3f} s for the entry "
+        f"module (build, sweep and {n_sets * len(SWEEP_TRACKS)} npz), "
+        f"{sweep_s / n * 1e3:.3f} ms per closed-loop step")
+    runs["sweep"] = dict(launches=launches, steps=n, seconds=sweep_s)
+
+    # the policy: a lap of run_policy, then the action-probability trace
+    n = int(POLICY_T / 0.02)
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logs, summary = run_policy(WMPC_MODEL, T=POLICY_T, device=dev)
+    torch.cuda.synchronize()
+    policy_s = time.perf_counter() - t0
+    probs, actions = action_probability_trace(WMPC_MODEL, T=POLICY_T, device=dev)
+    launches = dict(build.LAUNCHES)
+    say(f"[entry/policy] launches over 2 x {n} steps: {json.dumps(launches)}")
+    check_launches("policy", launches)
+    act = logs["RL_actions"]
+    check(act.shape == (n,) and bool(((act >= 0) & (act < 26)).all()),
+          f"policy: RL_actions outside [0, 26): {act}")
+    for k, v in logs.items():
+        check(bool(np.isfinite(v).all()), f"policy: non-finite values in {k}")
+    check(probs.shape == (n, 26) and bool(np.isfinite(probs).all()),
+          "policy: action probabilities not finite or of another shape")
+    row_err = float(np.abs(probs.sum(axis=1) - 1.0).max())
+    check(row_err <= 1e-5, f"policy: a probability row sums to 1 +- {row_err:.3e}")
+    say(f"[entry/policy] run_policy {n} steps in {policy_s:.3f} s "
+        f"({policy_s / n * 1e3:.3f} ms/step incl. build); summary {summary}; actions "
+        f"{sorted(set(act.tolist()))}, trace actions equal: {np.array_equal(actions, act)}; "
+        f"max |sum of a probability row - 1| {row_err:.3e}")
+    runs["policy"] = dict(launches=launches, steps=2 * n)
+    entry_holds(dev, runs, rec)
+    return runs
+
+
+def entry_holds(dev, runs, rec):
+    """Each entry path's closed loop again on the card, untimed, set up for
+    cpu_phase (`runs[path]["hold"]`): main from HOLD_LAP_POINT,
+    main_playback from the shipped configs' initial state fed the recorded
+    disturbances (a step's disturbance moves the plant, and so the next
+    step's solve), the sweep's 52 scenarios on their laps under their
+    weights, and the policy from HOLD_LAP_POINT after its first
+    ENTRY_CPU["policy"][0] steps, so that its first update falls inside the
+    window. main's profile window starts from the shipped configs' initial
+    state (`runs["main"]["start"]`)."""
+    from tum_control_tpu_torch.api import build_simulation
+    from tum_control_tpu_torch.config import MPCConfig, SimConfig
+    from tum_control_tpu_torch.get_baseline_performances import sweep_start
+    from tum_control_tpu_torch.learn.evaluation import lap_config
+    from tum_control_tpu_torch.learn.wmpc import load_param_table
+    from tum_control_tpu_torch.parallel.mesh import batched_scenarios
+
+    def hold(path, sim_cfg, mpc_cfg, inputs=None, key=0, corner=True):
+        sim, x0m, x0s, traj, _ = build_simulation(sim_cfg, mpc_cfg, device=dev)
+        start = sim.init_carry(x0m[None], x0s[None], key=key)
+        carry = start
+        if corner:
+            xm, xs = batched_scenarios(traj, traj.n_points)
+            carry = sim.init_carry(xm[None, HOLD_LAP_POINT], xs[None, HOLD_LAP_POINT], key=key)
+        settle, n = ENTRY_CPU[path]
+        if settle:
+            carry, _ = sim.run_from(carry, settle)
+        runs[path]["hold"] = dict(sim=sim, carry=carry, n=n, sim_cfg=sim_cfg, mpc_cfg=mpc_cfg,
+                                  inputs=inputs)
+        return start
+
+    runs["main"]["start"] = hold("main", runs["main"]["cfg"], runs["main"]["mpc"])
+
+    def playback(s, c, k):
+        row = lambda name: torch.as_tensor(rec[name][k][None], dtype=c.x_sim.dtype,
+                                           device=c.x_sim.device)
+        return (row("sim_disturbance_derivatives"), row("sim_disturbance_state_estimation"), {})
+    check(ENTRY_CPU["main_playback"][1] <= len(rec["CiLX"]) - 1,
+          "main_playback: the CPU hold is longer than the recording")
+    hold("main_playback", runs["main_playback"]["cfg"], runs["main"]["mpc"], playback, key=11,
+         corner=False)
+
+    table = load_param_table(os.path.join(REPO, "data", "F.csv"))
+    laps = {}
+
+    def sweep_inputs(s, c, k):
+        if s not in laps:
+            laps[s] = sweep_start(s, table, stacked_laps(SWEEP_TRACKS, c.x_sim.device,
+                                                         c.x_sim.dtype))[1:]
+        zero = torch.zeros_like(c.x_sim)
+        return zero, zero, dict(zip(("traj", "mods"), laps[s]))
+    sim_cfg, mpc_cfg = SimConfig(sim_mode=0), MPCConfig()
+    sim = build_simulation(sim_cfg, mpc_cfg, device=dev)[0]
+    carry = sweep_start(sim, table, stacked_laps(SWEEP_TRACKS, dev, torch.float32))[0]
+    runs["sweep"]["hold"] = dict(sim=sim, carry=carry, n=ENTRY_CPU["sweep"][1], sim_cfg=sim_cfg,
+                                 mpc_cfg=mpc_cfg, inputs=sweep_inputs)
+
+    hold("policy", lap_config("monteblanco", POLICY_T),
+         MPCConfig(enable_WMPC=True, WMPC_model=WMPC_MODEL))
+
+
+def entry_profile_window(run):
+    """main.py's closed loop (B = 1) in a profile window of PROFILE_STEPS
+    steps, from the shipped configs' initial state."""
+    profile_window(functools.partial(run["hold"]["sim"].run_from, run["start"], PROFILE_STEPS),
+                   PROFILE_STEPS, run["step_s"], "main")
 
 
 def main():
@@ -1165,6 +1514,7 @@ def main():
         return 1
     t_start = time.perf_counter()
     sys.path.insert(0, REPO)
+    from tum_control_tpu_torch.config import MPCConfig, SimConfig
     from tum_control_tpu_torch.ops.kernels import build
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1204,25 +1554,32 @@ def main():
     t = lap("ppo", t)
     runs["bo"] = bo_phase(dev)
     t = lap("bo", t)
+    runs.update(entry_phase(dev, smi.splitlines()[0]))
+    t = lap("entry", t)
     for path in PATHS:
         run = runs[path]
-        profile_window(functools.partial(run["sim"].run_from, run["carry"], 10), 10,
-                       run["step_s"], path)
+        profile_window(functools.partial(run["sim"].run_from, run["carry"], PROFILE_STEPS),
+                       PROFILE_STEPS, run["step_s"], path)
     ppo, bo = runs["ppo"], runs["bo"]
     tuning_profile_windows(ppo, bo)
+    entry_profile_window(runs["main"])
     t = lap("profile windows", t)
     profile_kernels(results, jobs)
     t = lap("kernel profiles", t)
     for path in PATHS:
         run = runs[path]
-        cpu_phase(path, run["sim"], run["carry0"], run["log_settle"])
+        cpu_phase(path, run["sim"], move_carry(run["carry0"], dev, torch.float32), PATHS[path][2],
+                  SimConfig(sim_mode=0), MPCConfig(**PATH_CONFIG[path]))
         t = lap(f"cpu/{path}", t)
     ppo_cpu_check(ppo)
     t = lap("cpu/ppo", t)
     bo_cpu_check(bo)
     t = lap("cpu/bo", t)
+    for path in ENTRY:
+        cpu_phase(path, **runs[path]["hold"])
+        t = lap(f"cpu/{path}", t)
     lap("whole script after the imports", t_start)
-    all_paths = list(PATHS) + list(TUNING)
+    all_paths = list(PATHS) + list(TUNING) + list(ENTRY)
     per_path = {path: runs[path]["launches"] for path in all_paths}
     check(set(results) == set(build.LAUNCHES), "kernel list and launch counters differ")
     kernels = []
@@ -1233,7 +1590,9 @@ def main():
         else:
             check(sum(n.values()) > 0, f"kernel {name} was launched on no path")
         head = {k: results[name].pop(k) for k in ("name", "route", "source", "replaces")}
+        per_step = {path: n[path] / runs[path]["steps"] for path in ENTRY}
         kernels.append(dict(head, launches=sum(n.values()), **results[name], launches_per_path=n,
+                            launches_per_step=per_step,
                             path=None if name in OFF_PATH else [p for p in all_paths if n[p] > 0]))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -87,14 +87,21 @@ def test_port_imports_without_jax_and_needs_cuda_by_default():
     (GGTables, NominalNMPC, StochasticNMPC, ReducedRobustNMPC,
     load_ref_trajectory, disturbance_config, init_estimator, init_warm,
     init_mlp_policy, BayesianOptimizer) raise without a CUDA device unless
-    the caller names a device."""
+    the caller names a device. The same holds for the user-facing entry
+    modules (main, get_baseline_performances, bo_postprocess_parameters),
+    run_policy, action_probability_trace and load_playback; main and the
+    baseline sweep then run on the CPU. matplotlib and imageio are blocked
+    too: nothing imports them at import time, a run without plots needs
+    neither, and asking for plots or a GIF raises an ImportError that names
+    the missing package."""
     code = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
 
+        BLOCKED = {"jax", "jaxlib", "tum_control_tpu", "matplotlib", "imageio"}
+
         class Block(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):
-                top = name.split(".")[0]
-                if top in ("jax", "jaxlib", "tum_control_tpu"):
+                if name.split(".")[0] in BLOCKED:
                     raise ImportError("blocked: " + name)
                 return None
 
@@ -102,7 +109,7 @@ def test_port_imports_without_jax_and_needs_cuda_by_default():
         import tum_control_tpu_torch as pkg
         for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
             importlib.import_module(m.name)
-        bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tum_control_tpu")]
+        bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not bad, bad
         import numpy as np
         from tum_control_tpu_torch import config as cfg, convert
@@ -179,6 +186,44 @@ def test_port_imports_without_jax_and_needs_cuda_by_default():
         assert load_sb3_policy(npz, device="cpu").n_actions == 26
         assert convert.robust_extra(extra, device="cpu").corr_acc.shape == (2, 39, 1)
         assert convert.sim_carry(carry, device="cpu").ctrl_state.X.shape == (2, 39, 88)
+
+        import tempfile
+        from tum_control_tpu_torch import bo_postprocess_parameters, get_baseline_performances
+        from tum_control_tpu_torch import main as entry_main
+        from tum_control_tpu_torch.eval import plots
+        from tum_control_tpu_torch.eval.live_viz import LiveView
+        from tum_control_tpu_torch.learn.evaluation import action_probability_trace, run_policy
+        from tum_control_tpu_torch.sim.disturbances import load_playback
+        model = "data/wmpc_models/new_BO_F"
+        trials = cfg.REPO_ROOT + "/Logs/bo_trials_r4.csv"
+        needs_cuda("main", lambda: entry_main.main(["--no-plots", "--T", "0.02"]))
+        needs_cuda("get_baseline_performances", lambda: get_baseline_performances.main(
+            ["--T", "0.02"]))
+        needs_cuda("bo_postprocess_parameters", lambda: bo_postprocess_parameters.main([trials]))
+        needs_cuda("run_policy", lambda: run_policy(model, T=0.02))
+        needs_cuda("action_probability_trace", lambda: action_probability_trace(model, T=0.02))
+        needs_cuda("load_playback", lambda: load_playback("Logs", "full_logs.npz", 5))
+
+        def needs(package, name, fn):
+            try:
+                fn()
+            except ImportError as e:
+                assert package in str(e), (name, e)
+            else:
+                raise AssertionError(name + " ran without " + package)
+
+        tmp = tempfile.mkdtemp()
+        needs("matplotlib", "plot_all", lambda: plots.plot_all({}, tmp))
+        needs("matplotlib", "run_main with plots", lambda: entry_main.run_main(
+            sim, MPCConfig(), device="cpu", logs_path=tmp))
+        needs("matplotlib", "LiveView", lambda: LiveView())
+        logs, _, _ = entry_main.main(["--no-plots", "--T", "0.04", "--device", "cpu",
+                                      "--logs-path", tmp])
+        assert logs["simU"].shape == (2, 2)
+        out = get_baseline_performances.main(["--T", "0.02", "--device", "cpu", "--out", tmp])
+        assert [s.shape for s in out] == [(26, 3), (26, 3)]
+        BLOCKED.discard("matplotlib")
+        needs("imageio", "LiveView with a GIF", lambda: LiveView(gif_path=tmp + "/x.gif"))
         print("ISOLATED-OK")
     """)
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO)

@@ -10,6 +10,8 @@ the K7 solve with garbage above L's diagonal; the kernels' own launch-shape
 queries against the Python plans. The tuning loops' pieces: the planner on
 one lap per scenario against the CPU, one RL env step and one BO objective
 chunk against the CPU float64 run from the same state, each through K1-K5.
+One scenario (B = 1, main.py's closed loop): K1 and K4 at that shape, and
+5 steps of the entry module's run_main through K1-K5.
 
 Marked `cuda`; without a CUDA device every test skips. On a GPU machine:
 
@@ -365,8 +367,9 @@ def _k4_case(B, nz, ncg, seed, dev):
 
 
 # ragged nz (one, two and three substitution blocks, each with a padded tail),
-# batches that are not a multiple of 32, and the shipped shape
-K4_SHAPES = [(3, 5, 6), (130, 17, 20), (7, 40, 44), (128, 76, 78)]
+# batches that are not a multiple of 32, and the shipped shape, also for one
+# scenario (main.py's closed loop)
+K4_SHAPES = [(3, 5, 6), (130, 17, 20), (7, 40, 44), (128, 76, 78), (1, 76, 78)]
 
 
 @pytest.mark.parametrize("B,nz,ncg", K4_SHAPES)
@@ -424,10 +427,11 @@ def test_ipm_iteration_plan_matches_the_kernel(dev):
             assert ok and tuple(out) == plan[:6], (nz, ncg, tuple(out), plan)
 
 
-@pytest.mark.parametrize("case", ["snmpc", "ragged"])
+@pytest.mark.parametrize("case", ["snmpc", "ragged", "single"])
 def test_linearize_kernel_shapes(dev, case):
-    """K1 at the SNMPC shape (128 scenarios x 88 elements, one RK4 substep)
-    and at 3 x 37 elements of the nominal step (a ragged last block), on
+    """K1 at the SNMPC shape (128 scenarios x 88 elements, one RK4 substep),
+    at 3 x 37 elements of the nominal step (a ragged last block) and at one
+    scenario's 38 (main.py's closed loop: one block, mostly idle lanes), on
     states spread about starts along the lap as chip_smoke.py draws them:
     F and every column of J to 2e-5 of its max |plain|; one launch. (Near
     standstill, where an RK4 stage crosses the low-speed guard and J grows
@@ -438,7 +442,7 @@ def test_linearize_kernel_shapes(dev, case):
         B, N = 128, 88
     else:
         lr = build_controller(MPCConfig(), SimConfig(), device=dev).engine.funcs.lin_rollout
-        B, N = 3, 37
+        B, N = (3, 37) if case == "ragged" else (1, 38)
     rng = np.random.default_rng(11)
     traj = load_ref_trajectory(os.path.join(SimConfig().trajectory_path,
                                             SimConfig().ref_traj_file), torch.float64, device="cpu")
@@ -580,3 +584,23 @@ def test_objective_chunk_on_card_matches_cpu(dev):
     assert torch.equal(feas, res["cpu"][1])
     assert torch.equal(torch.isnan(f), torch.isnan(res["cpu"][0]))
     assert float((f.double() - res["cpu"][0]).nan_to_num().abs().max()) <= TOL_OBJ
+
+
+def test_run_main_single_scenario_goes_through_every_kernel(dev, tmp_path):
+    """main.py's closed loop on the card: one scenario (B = 1) of the shipped
+    configs for 5 steps in float32, plots off: the logs in the reference
+    layout, finite, every solve ok, and K1-K5 launched (5 steps and the
+    warm-up chunk) and no other kernel."""
+    from tum_control_tpu_torch import main as entry_main
+
+    build.reset_launches()
+    logs, summary, wall = entry_main.main(["--T", "0.1", "--no-plots", "--logs-path",
+                                           str(tmp_path)])
+    torch.cuda.synchronize()
+    steps = 5 + entry_main.WARMUP_STEPS
+    assert build.LAUNCHES == {k: v // 5 * steps for k, v in NOMINAL_LAUNCHES.items()}
+    assert logs["simU"].shape == (5, 2) and logs["CiLX"].shape == (6, 7)
+    for k, v in logs.items():
+        assert np.isfinite(v).all(), k
+    assert (logs["simSolverDebug"][:, 1] > 0).all()
+    assert summary["solver_ok_frac"] == 1.0 and wall > 0

@@ -62,3 +62,25 @@ def draw_disturbance(cfg: DisturbanceConfig, generator: torch.Generator, batch: 
         return mag * torch.randn((batch, n), **kw)
     return mag.expand(batch, n).clone()  # absolute
 
+
+
+def load_playback(logs_path: str, log_file: str, n_steps: int, dtype=torch.float32,
+                  device=None):
+    """Load a recorded disturbance realization from a previous run's
+    full_logs.npz for replay (the arrays `sim_disturbance_derivatives` and
+    `sim_disturbance_state_estimation`; a relative `log_file` is taken under
+    `logs_path`). Returns (w_deriv, w_se), (n_steps, 7) tensors on `device`
+    (device.resolve_device), zero-padded where the recording is shorter;
+    `ClosedLoopSim.run_from` takes them with a batch axis in front."""
+    import os
+
+    device = resolve_device(device)
+    path = log_file if os.path.isabs(log_file) else os.path.join(logs_path, log_file)
+    data = np.load(path)
+    out = []
+    for name in ("sim_disturbance_derivatives", "sim_disturbance_state_estimation"):
+        w = np.asarray(data[name])[:n_steps]
+        if w.shape[0] < n_steps:
+            w = np.concatenate([w, np.zeros((n_steps - w.shape[0], w.shape[1]), w.dtype)])
+        out.append(torch.as_tensor(w[:, :7], dtype=dtype, device=device))
+    return tuple(out)
