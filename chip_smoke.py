@@ -56,13 +56,23 @@ Phases (any failure raises and the script exits non-zero):
      52 scenarios, 100 steps; its npz and summary.csv layout), and `policy`,
      run_policy and action_probability_trace of the new_BO_F policy (50
      steps each; actions in [0, 26), probability rows summing to 1);
-  6. after all loops (a profiler session slows every later step's host
+  6. serving and sharding, each with the counters reset just before and
+     read just after: `serve`, the entry module deploy_rt in-process at
+     B = 1 (nominal, SERVE_CYCLES cycles of 20 ms synchronous, then as many
+     with --pipeline 2; telemetry exported and read back: every record, status
+     0, finite; p50/p99/max solve or age ms, misses, stale cycles, distinct
+     controls, the age decomposition, freezes and late starts), and, untimed,
+     the controls of both runs against run_from's from the same carry
+     (TOL_SERVE; the pipelined run's at the step each cycle applied); `distributed`, initialize_distributed with NCCL at world
+     size 1, the sharded nominal loop (DIST_B, DIST_STEPS; the all-reduced
+     mean |lat_dev| against the local one) and scaling_report at one card;
+  7. after all loops (a profiler session slows every later step's host
      time), a torch.profiler window of PROFILE_STEPS steps of each loop, of
      one env step, one objective chunk and `main`, and the profiler's
      device time of each kernel case of phase 2 and its library call
      (`profiled_ms`; the `library_ms` of a library call that synchronizes
      with the host, so that `ms` and `library_ms` are both device time);
-  7. reruns each path's first steps on the CPU (plain versions) in float64
+  8. reruns each path's first steps on the CPU (plain versions) in float64
      and in float32 from the card's own carry at that step and holds the
      card's inputs simU to each (WMPC: and its actions to the float64
      run's); holds one env step from the card's trained-env state, and three
@@ -74,10 +84,22 @@ Phases (any failure raises and the script exits non-zero):
      playback fed the recorded disturbances, the sweep's 52 scenarios on
      their laps and weights, the policy across its first update (actions
      equal, probabilities within TOL_PROB);
-  8. prints the seconds each phase took, one {"kernels": [...]} line
-     (launches per path, and per closed-loop step on the entry paths; K7
-     and K8, which no path launches, with 0 and "path": null) and, last,
-     the device line.
+  9. `diffmode`: the gradient of mean |lat_dev| over DIFF_STEPS steps at
+     DIFF_B scenarios from HOLD_LAP_POINT with respect to the 8 tire
+     log-multipliers on the card in float32 (twice, the second timed; the
+     counters reset just before and read just after: K1-K5 launch in the
+     forward, their backward is the plain versions' VJP), held per
+     component (TOL_GRAD, GRAD_FLOOR) to the nearest of the CPU's float64
+     gradient and its float32 gradients, K2 plain and valued in float64
+     (the float32 loop's gradient is bimodal there);
+     `robust_utils`: one full-ZoRo augmented step at AUG_B lap states on the
+     card in float32 against the CPU float64 step, per state column, per
+     diagonal entry of Sigma and per entry in units of sqrt(S_ii S_jj)
+     (TOL_AUG);
+ 10. prints the seconds each phase took, one {"kernels": [...]} line
+     (launches per path, and per closed-loop step on the entry, serving,
+     sharding and differentiable paths; K7 and K8, which no path launches,
+     with 0 and "path": null) and, last, the device line.
 
     python3 chip_smoke.py --kernels-only   # phases 1, 2 and the kernels' profiles
 
@@ -175,6 +197,10 @@ PATH_KERNELS = {
     "ppo": NOMINAL_KERNELS,
     "bo": NOMINAL_KERNELS,
     **{path: NOMINAL_KERNELS for path in ENTRY},
+    "serve": NOMINAL_KERNELS,
+    "distributed": NOMINAL_KERNELS,
+    "diffmode": NOMINAL_KERNELS,
+    "robust_utils": (),
 }
 # the tuning loops at full width, cut in depth (phase 4)
 TRACKS_PPO = ("monteblanco", "modena")
@@ -198,6 +224,43 @@ TOL_ENV = 1e-3
 TOL_OBJ = 4e-3
 # no JAX caller reaches these kernels; held in the kernel phase only
 OFF_PATH = {"condense_mxu", "cholesky_unblocked", "chol_solve_unblocked"}
+# phase 6, serving, sharding and differentiating (each a path of its own):
+# the serving entry module (deploy_rt) at B = 1, synchronous and with
+# --pipeline 2, SERVE_CYCLES cycles of SERVE_PERIOD each; the sharded
+# nominal loop under NCCL at world size 1 (DIST_B scenarios, DIST_STEPS
+# steps) and scaling_report at one card (SCALING); the gradient of mean
+# |lat_dev| over DIFF_STEPS steps at DIFF_B scenarios from HOLD_LAP_POINT
+# with respect to the 8 tire log-multipliers (the kernels in the forward,
+# the plain versions' VJP in the backward); one full-ZoRo augmented step (8
+# RK4 substeps) at AUG_B scenarios
+SERVE = ("serve", "distributed", "diffmode")
+SERVE_CYCLES, SERVE_PERIOD = 250, 0.02
+DIST_B, DIST_STEPS = 128, 20
+SCALING = dict(device_counts=[1], batch_per_device=128, steps=50)
+DIFF_B, DIFF_STEPS = 8, 5
+AUG_B = 128
+# the served controls against run_from's from the same carry on the card:
+# the same float32 steps, so equal but for the packed vector's float32
+# rounding (max |difference| per input over its max |u|)
+TOL_SERVE = 1e-6
+# the card's float32 gradient against reference gradients from the same
+# start, per component: |g_i - r_i| <= TOL_GRAD * max(|r_i|, GRAD_FLOOR *
+# max |r|) (the Pacejka E factors' components are ~2e-3 of the largest).
+# The references: the CPU's float64 gradient, and the CPU's float32 gradient
+# with K2's outputs plain, and valued by the plain version in float64 (a
+# float32 K2 more exact than the plain one). The float32 loop's gradient is
+# bimodal there: a move of a kernel's outputs by float32 rounding lands the
+# first solve's exact line search (ops/soft_qp.py) on either side of a
+# kink, and the gradient takes one of two values; float64's moves by far
+# less (the phase prints each reference's gap from float64, and float64's
+# with K2 valued in float32). The card's gradient must lie within TOL_GRAD
+# of one of them
+TOL_GRAD, GRAD_FLOOR = 1e-3, 1e-3
+# the card's float32 augmented step against the CPU's float64 step: each
+# state column over its max |x|, each diagonal entry of Sigma over itself
+# (they span 1e-10 .. 0.2), each entry of Sigma over sqrt(S_ii S_jj). The
+# CPU's own float32 step lies within 4e-7, 1.8e-6 and 2.5e-6 of float64
+TOL_AUG = 1e-5
 
 # tolerance of each kernel against its plain version on the same inputs, held
 # for every output on its own (for K1 every column of J) as
@@ -1508,6 +1571,276 @@ def entry_profile_window(run):
                    PROFILE_STEPS, run["step_s"], "main")
 
 
+def serve_phase(dev, smi):
+    """The serving entry module in-process (deploy_rt.main): SERVE_CYCLES
+    cycles synchronous, then as many with --pipeline 2, each with its
+    telemetry exported and read back; the counters are reset just before
+    the first run and read just after the second. Then, untimed, the
+    synchronous controls against run_from's from the same carry."""
+    from tum_control_tpu_torch import deploy_rt
+    from tum_control_tpu_torch.api import build_simulation
+    from tum_control_tpu_torch.config import MPCConfig, SimConfig
+    from tum_control_tpu_torch.ops.kernels import build
+    from tum_control_tpu_torch.utils.rt_runtime import read_telemetry
+
+    out = os.path.join(OUT_DIR, "serve")
+    os.makedirs(out, exist_ok=True)
+    recs, res = {}, {}
+    build.reset_launches()
+    for mode, extra in (("sync", []), ("pipeline", ["--pipeline", "2"])):
+        tele = os.path.join(out, f"telemetry_{mode}.bin")
+        if os.path.exists(tele):
+            os.remove(tele)  # the export appends
+        res[mode] = deploy_rt.main(["--cycles", str(SERVE_CYCLES), "--period", str(SERVE_PERIOD),
+                                    "--controller", "nominal", "--telemetry", tele,
+                                    "--device", str(dev), *extra])
+        recs[mode] = read_telemetry(tele)
+    launches = dict(build.LAUNCHES)
+    applied = res["pipeline"].pop("apply_log")
+    say(f"[serve] launches over 2 x ({SERVE_CYCLES} cycles and the warm-up step): "
+        f"{json.dumps(launches)}")
+    check_launches("serve", launches)
+    for mode, rec in recs.items():
+        st = res[mode]["stats"]
+        check(rec.shape == (SERVE_CYCLES,) and st["cycles"] == SERVE_CYCLES,
+              f"serve/{mode}: {rec.shape[0]} records, {st['cycles']} cycles")
+        check(bool((rec["status"] == 0).all()), f"serve/{mode}: statuses {set(rec['status'])}")
+        for f in rec.dtype.names:
+            check(bool(np.isfinite(rec[f]).all()), f"serve/{mode}: non-finite telemetry {f}")
+        what = "solve" if mode == "sync" else "age"
+        say(f"[serve/{mode}] {smi}: {what} ms p50 {st['solve_ms_p50']:.3f} p99 "
+            f"{st['solve_ms_p99']:.3f} max {st['solve_ms_max']:.3f} mean {st['solve_ms_mean']:.3f};"
+            f" misses {st['deadline_misses']}/{st['cycles']} at {SERVE_PERIOD * 1e3:.0f} ms")
+    r = res["pipeline"]
+    a = r["age"]
+    say(f"[serve/pipeline] stale cycles {r['stale_cycles']}/{SERVE_CYCLES}, distinct controls "
+        f"{r['distinct_controls']}; completion p50/p99 {a['completion_p50']:.3f}/"
+        f"{a['completion_p99']:.3f} ms (host enqueue {a['enqueue_p50']:.3f}/"
+        f"{a['enqueue_p99']:.3f}), phase wait p50/p99 {a['phase_wait_p50']:.3f}/"
+        f"{a['phase_wait_p99']:.3f} ms, final lead {a['final_lead_ms']:.3f} ms; freezes "
+        f"{r['freezes']} ({r['frozen_ms']:.1f} ms), late starts {r['late_starts']} "
+        f"({r['late_env']} environment / {r['late_app']} application), stale holds attributed "
+        f"{r['stale_attributed']}, steal {r['steal_s']}")
+    say(f"[serve] {json.dumps({'sync': res['sync'], 'pipeline': res['pipeline']})}")
+
+    # the served controls against run_from from the same carry: cycle i's
+    # in the synchronous run, the step applied at cycle i (apply_log) in the
+    # pipelined one, which reads the pinned row behind the copy's event
+    sim, x0m, x0s, _, _ = build_simulation(SimConfig(sim_mode=0, T=SERVE_CYCLES * SERVE_PERIOD),
+                                           MPCConfig(), device=dev)
+    _, log = sim.run_from(sim.init_carry(x0m[None], x0s[None], key=0), SERVE_CYCLES)
+    u = log.simU[0].double().cpu().numpy()
+    scale = np.abs(u).max(axis=0)
+    for mode, steps in (("sync", np.arange(SERVE_CYCLES)), ("pipeline", applied)):
+        served = np.stack([recs[mode]["u0"], recs[mode]["u1"]], axis=1).astype(np.float64)
+        gap = np.abs(served - u[steps]).max(axis=0)
+        say(f"[serve/{mode}] u0/u1 against run_from's {SERVE_CYCLES} steps: max |gap| "
+            f"{gap.tolist()} of max |u| {scale.tolist()} (tol {TOL_SERVE:.0e})")
+        check(bool((gap <= TOL_SERVE * scale).all()),
+              f"serve/{mode}: controls {gap} from run_from's")
+    return dict(launches=launches, steps=2 * (SERVE_CYCLES + 1), results=res)
+
+
+def distributed_phase(dev):
+    """initialize_distributed with NCCL at world size 1 on a free localhost
+    port; the sharded nominal loop (its all-reduced mean |lat_dev| against
+    the local reduction) and scaling_report at one card; the counters reset
+    just before the loop and read just after the report."""
+    import socket
+
+    import torch.distributed as dist
+
+    from tum_control_tpu_torch.api import build_simulation
+    from tum_control_tpu_torch.config import MPCConfig, SimConfig
+    from tum_control_tpu_torch.ops.kernels import build
+    from tum_control_tpu_torch.parallel.distributed import (
+        initialize_distributed, scaling_report, sharded_run,
+    )
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    d = initialize_distributed(f"tcp://127.0.0.1:{port}", 1, 0, device=dev)
+    try:
+        check(dist.get_backend() == "nccl", f"backend {dist.get_backend()} on the card")
+        sim, _, _, traj, _ = build_simulation(SimConfig(sim_mode=0), MPCConfig(), device=d)
+        build.reset_launches()
+        run = sharded_run(sim, traj, DIST_B, DIST_STEPS, device=d)
+        rows = scaling_report(sim, traj, device=d, **SCALING)
+        launches = dict(build.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+    say(f"[distributed] launches over {DIST_STEPS} sharded steps and 2 x {SCALING['steps']} "
+        f"scaling steps: {json.dumps(launches)}")
+    check_launches("distributed", launches)
+    ok = run.solver_ok / (DIST_B * DIST_STEPS)
+    gap = abs(run.mean_abs_lat_dev - run.local_mean)
+    say(f"[distributed] world 1 (nccl), B={DIST_B}, {DIST_STEPS} steps: all-reduced mean "
+        f"|lat_dev| {run.mean_abs_lat_dev:.9e} m, local {run.local_mean:.9e} m (gap {gap:.3e}); "
+        f"solver ok {run.solver_ok}/{DIST_B * DIST_STEPS}")
+    check(gap <= 1e-12 * run.local_mean, f"distributed: all-reduce {gap:.3e} from the local mean")
+    check(ok >= 0.99, f"distributed: solver ok fraction {ok} < 0.99")
+    check(len(rows) == 1 and rows[0]["devices"] == 1 and rows[0]["efficiency"] == 1.0,
+          f"distributed: scaling rows {rows}")
+    say(f"[distributed] scaling_report {json.dumps(rows)}")
+    return dict(launches=launches, steps=DIST_STEPS + 2 * SCALING["steps"], rows=rows)
+
+
+def diffmode_gradient(device, dtype, k2_values=None):
+    """mean |lat_dev| over DIFF_STEPS steps of the nominal loop at DIFF_B
+    scenarios from HOLD_LAP_POINT, and its gradient with respect to the 8
+    tire log-multipliers (tires in plant and controller); seconds with the
+    device synchronized. With `k2_values` (a dtype), K2's outputs take the
+    values of its plain version computed in that dtype, and keep the
+    derivative of the plain version in `dtype`."""
+    from tum_control_tpu_torch.api import build_simulation
+    from tum_control_tpu_torch.config import (
+        DEFAULT_CONFIG_PATH, MPCConfig, SimConfig, load_tire_params,
+    )
+    from tum_control_tpu_torch.ops import rti
+    from tum_control_tpu_torch.parallel.mesh import batched_scenarios
+    from tum_control_tpu_torch.params import scaled_tire_params
+
+    if k2_values is not None:
+        condense = rti.condense
+
+        def valued(*args):
+            out = condense(*args)
+            with torch.no_grad():
+                val = condense(*(t.to(k2_values) for t in args))
+            return tuple(t + (v.to(t) - t.detach()) for t, v in zip(out, val))
+
+        rti.condense = valued
+        try:
+            return diffmode_gradient(device, dtype)
+        finally:
+            rti.condense = condense
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    theta = torch.zeros(8, dtype=dtype, device=device, requires_grad=True)
+    tp = scaled_tire_params(load_tire_params(DEFAULT_CONFIG_PATH, SimConfig().tire_params_file_MPC),
+                            theta)
+    sim, _, _, traj, _ = build_simulation(SimConfig(sim_mode=0), MPCConfig(), device=device,
+                                          dtype=dtype, tire_params=tp)
+    xm, xs = batched_scenarios(traj, traj.n_points)
+    p = HOLD_LAP_POINT
+    _, log = sim.run(xm[p:p + DIFF_B], xs[p:p + DIFF_B], DIFF_STEPS)
+    loss = log.lat_dev.abs().mean()
+    (g,) = torch.autograd.grad(loss, theta)
+    sync()
+    ok = int((log.simSolverDebug[..., 4] == 0).sum())
+    return g.double().cpu().numpy(), float(loss.detach()), ok, time.perf_counter() - t0
+
+
+def grad_gap(g, ref):
+    """|g - ref| per component over max(|ref_i|, GRAD_FLOOR max |ref|)."""
+    return np.abs(g - ref) / np.maximum(np.abs(ref), GRAD_FLOOR * np.abs(ref).max())
+
+
+def diffmode_references(g64):
+    """The CPU's reference gradients (TOL_GRAD): float64 (`g64`), float64
+    with K2 valued in float32, float32, float32 with K2 valued in float64."""
+    return {"cpu f64": g64,
+            "cpu f64, K2 valued in f32": diffmode_gradient("cpu", torch.float64, torch.float32)[0],
+            "cpu f32": diffmode_gradient("cpu", torch.float32)[0],
+            "cpu f32, K2 valued in f64": diffmode_gradient("cpu", torch.float32, torch.float64)[0]}
+
+
+def diffmode_phase(dev, smi):
+    """The tire gradient on the card in float32 through the kernels (twice,
+    the second timed; the counters reset just before and read just after)
+    against the nearest of the CPU's reference gradients from the same
+    start, per component (TOL_GRAD)."""
+    from tum_control_tpu_torch.ops.kernels import build
+
+    build.reset_launches()
+    g_warm, _, _, s_first = diffmode_gradient(dev, torch.float32)
+    g32, loss32, ok32, s32 = diffmode_gradient(dev, torch.float32)
+    launches = dict(build.LAUNCHES)
+    g64, loss64, ok64, s64 = diffmode_gradient("cpu", torch.float64)
+    refs = diffmode_references(g64)
+    say(f"[diffmode] launches over 2 gradients of {DIFF_STEPS} steps: {json.dumps(launches)}")
+    check_launches("diffmode", launches)
+    check(bool(np.isfinite(g32).all()) and float(np.abs(g32).max()) > 0,
+          f"diffmode: card gradient {g32}")
+    check(ok32 == DIFF_B * DIFF_STEPS and ok64 == DIFF_B * DIFF_STEPS,
+          f"diffmode: solver ok {ok32} / {ok64} of {DIFF_B * DIFF_STEPS}")
+    gap = np.abs(g32 - g64)
+    rel = grad_gap(g32, g64)
+    rerun = float(np.abs(g32 - g_warm).max())
+    say(f"[diffmode] {smi}: B={DIFF_B}, {DIFF_STEPS} steps from lap point {HOLD_LAP_POINT}: "
+        f"loss card f32 {loss32:.9e} cpu f64 {loss64:.9e}; gradient card f32 "
+        f"{np.array2string(g32, precision=6, max_line_width=10**4)}, cpu f64 "
+        f"{np.array2string(g64, precision=6, max_line_width=10**4)}; per-component gap from "
+        f"cpu f64 {np.array2string(rel, precision=3, max_line_width=10**4)}; max |gap| / max "
+        f"|g| {gap.max() / np.abs(g64).max():.3e}; rerun gap {rerun:.3e}")
+    fmt = lambda a: np.array2string(a, precision=3, max_line_width=10**4)
+    near = {name: grad_gap(g32, r) for name, r in refs.items()}
+    for name, r in refs.items():
+        say(f"[diffmode] reference {name}: per-component gap from cpu f64 {fmt(grad_gap(r, g64))};"
+            f" the card's from it {fmt(near[name])}")
+    best = min(near, key=lambda name: near[name].max())
+    say(f"[diffmode] seconds per gradient: card f32 {s32:.3f} s (first {s_first:.3f} s), "
+        f"cpu f64 {s64:.3f} s ({torch.get_num_threads()} threads)")
+    say(f"[diffmode] nearest reference {best} (tol {TOL_GRAD:.0e}, floor {GRAD_FLOOR:.0e} of "
+        f"max |g|)")
+    check(bool((near[best] <= TOL_GRAD).all()),
+          f"diffmode: card gradient per component {near[best]} from the nearest reference, {best}")
+    return dict(launches=launches, steps=2 * DIFF_STEPS,
+                result=dict(g32=g32.tolist(), g64=g64.tolist(), rel=rel.tolist(), nearest=best,
+                            s32=s32, s_first=s_first, s64=s64))
+
+
+def robust_utils_phase(dev):
+    """One full-ZoRo augmented step (make_aug_step, 8 substeps) at AUG_B lap
+    states on the card in float32 against the CPU float64 step."""
+    from tum_control_tpu_torch.config import (
+        DEFAULT_CONFIG_PATH, SimConfig, load_tire_params, load_vehicle_params,
+    )
+    from tum_control_tpu_torch.controllers import robust_utils as ru
+    from tum_control_tpu_torch.track.trajectory import load_ref_trajectory
+    from tum_control_tpu_torch.models.vehicle_stm import pred_ode
+    from tum_control_tpu_torch.ops.kernels import build
+    from tum_control_tpu_torch.parallel.mesh import batched_scenarios
+
+    cfg = SimConfig()
+    vp = load_vehicle_params(DEFAULT_CONFIG_PATH, cfg.veh_params_file_MPC)
+    tp = load_tire_params(DEFAULT_CONFIG_PATH, cfg.tire_params_file_MPC)
+    f = lambda x, u: pred_ode(x, u, vp, tp)
+    traj = load_ref_trajectory(os.path.join(cfg.trajectory_path, cfg.ref_traj_file),
+                               dtype=torch.float64, device="cpu")
+    x0, _ = batched_scenarios(traj, AUG_B)
+    rng = np.random.default_rng(0)
+    u = torch.tensor(rng.normal(size=(AUG_B, 2)) * [0.3, 0.02])
+    W = np.diag([0.01, 0.8, 0.35, 0.035]) ** 2
+    sig0 = torch.tensor(np.diag([1e-5, 1e-5, 1e-4, 0.4, 0.17, 0.017, 1e-5, 1e-5]) ** 2)
+    xa = ru.aug_initial_state(x0, sig0.expand(AUG_B, 8, 8))
+    step = ru.make_aug_step(f, W, 0.08, substeps=8)
+    ref = step(xa, u, 0.0)
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = step(xa.to(dev, torch.float32), u.to(dev, torch.float32), 0.0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    check_launches("robust_utils", launches)
+    out = out.double().cpu()
+    check(bool(torch.isfinite(out).all()), "robust_utils: non-finite augmented step")
+    gx = ((out[:, :8] - ref[:, :8]).abs().amax(0) / ref[:, :8].abs().amax(0)).numpy()
+    S, S_ref = ru.vec2sym_mat(out[:, 8:]), ru.vec2sym_mat(ref[:, 8:])
+    d = torch.diagonal(S_ref, dim1=-2, dim2=-1)
+    gd = (torch.diagonal(S - S_ref, dim1=-2, dim2=-1).abs() / d).amax(0).numpy()
+    gc = float(((S - S_ref).abs() / torch.sqrt(d[:, :, None] * d[:, None, :])).max())
+    say(f"[robust_utils] B={AUG_B}, one 8-substep augmented step on the card in {secs:.3f} s: "
+        f"x gap per column {np.array2string(gx, precision=3, max_line_width=10**4)}; Sigma "
+        f"diagonal gap per state {np.array2string(gd, precision=3, max_line_width=10**4)}; "
+        f"Sigma gap in sqrt(S_ii S_jj) {gc:.3e} (tol {TOL_AUG:.0e})")
+    check(bool((gx <= TOL_AUG).all() and (gd <= TOL_AUG).all()) and gc <= TOL_AUG,
+          f"robust_utils: gaps {gx} / {gd} / {gc:.3e}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs on a GPU", file=sys.stderr)
@@ -1556,6 +1889,10 @@ def main():
     t = lap("bo", t)
     runs.update(entry_phase(dev, smi.splitlines()[0]))
     t = lap("entry", t)
+    runs["serve"] = serve_phase(dev, smi.splitlines()[0])
+    t = lap("serve", t)
+    runs["distributed"] = distributed_phase(dev)
+    t = lap("distributed", t)
     for path in PATHS:
         run = runs[path]
         profile_window(functools.partial(run["sim"].run_from, run["carry"], PROFILE_STEPS),
@@ -1578,8 +1915,12 @@ def main():
     for path in ENTRY:
         cpu_phase(path, **runs[path]["hold"])
         t = lap(f"cpu/{path}", t)
+    runs["diffmode"] = diffmode_phase(dev, smi.splitlines()[0])
+    t = lap("diffmode", t)
+    robust_utils_phase(dev)
+    t = lap("robust_utils", t)
     lap("whole script after the imports", t_start)
-    all_paths = list(PATHS) + list(TUNING) + list(ENTRY)
+    all_paths = list(PATHS) + list(TUNING) + list(ENTRY) + list(SERVE)
     per_path = {path: runs[path]["launches"] for path in all_paths}
     check(set(results) == set(build.LAUNCHES), "kernel list and launch counters differ")
     kernels = []
@@ -1590,7 +1931,7 @@ def main():
         else:
             check(sum(n.values()) > 0, f"kernel {name} was launched on no path")
         head = {k: results[name].pop(k) for k in ("name", "route", "source", "replaces")}
-        per_step = {path: n[path] / runs[path]["steps"] for path in ENTRY}
+        per_step = {path: n[path] / runs[path]["steps"] for path in ENTRY + SERVE}
         kernels.append(dict(head, launches=sum(n.values()), **results[name], launches_per_path=n,
                             launches_per_step=per_step,
                             path=None if name in OFF_PATH else [p for p in all_paths if n[p] > 0]))

@@ -90,7 +90,11 @@ def test_port_imports_without_jax_and_needs_cuda_by_default():
     the caller names a device. The same holds for the user-facing entry
     modules (main, get_baseline_performances, bo_postprocess_parameters),
     run_policy, action_probability_trace and load_playback; main and the
-    baseline sweep then run on the CPU. matplotlib and imageio are blocked
+    baseline sweep then run on the CPU. So do the serving entry module
+    deploy_rt, scaling_report, the scaling_eval tool and
+    initialize_distributed, which picks gloo only when the caller names the
+    CPU (the real-time executor is host code and needs no card).
+    matplotlib and imageio are blocked
     too: nothing imports them at import time, a run without plots needs
     neither, and asking for plots or a GIF raises an ImportError that names
     the missing package."""
@@ -224,6 +228,26 @@ def test_port_imports_without_jax_and_needs_cuda_by_default():
         assert [s.shape for s in out] == [(26, 3), (26, 3)]
         BLOCKED.discard("matplotlib")
         needs("imageio", "LiveView with a GIF", lambda: LiveView(gif_path=tmp + "/x.gif"))
+
+        import socket
+        import torch.distributed as dist
+        from tum_control_tpu_torch import deploy_rt
+        from tum_control_tpu_torch.parallel.distributed import (
+            initialize_distributed, scaling_report)
+        from tum_control_tpu_torch.tools import scaling_eval
+        needs_cuda("deploy_rt", lambda: deploy_rt.main(["--cycles", "1"]))
+        sim_cpu, _, _, traj_cpu, _ = build_simulation(sim, MPCConfig(), device="cpu")
+        needs_cuda("scaling_report", lambda: scaling_report(sim_cpu, traj_cpu,
+                                                            batch_per_device=1, steps=1))
+        needs_cuda("scaling_eval", lambda: scaling_eval.main(["--steps", "1"]))
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            addr = "127.0.0.1:%d" % s.getsockname()[1]
+        needs_cuda("initialize_distributed", lambda: initialize_distributed(addr, 1, 0))
+        assert not dist.is_initialized()
+        assert initialize_distributed(addr, 1, 0, device="cpu").type == "cpu"
+        assert dist.get_backend() == "gloo"
+        dist.destroy_process_group()
         print("ISOLATED-OK")
     """)
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO)

@@ -11,7 +11,8 @@ queries against the Python plans. The tuning loops' pieces: the planner on
 one lap per scenario against the CPU, one RL env step and one BO objective
 chunk against the CPU float64 run from the same state, each through K1-K5.
 One scenario (B = 1, main.py's closed loop): K1 and K4 at that shape, and
-5 steps of the entry module's run_main through K1-K5.
+5 steps of the entry module's run_main through K1-K5. The tire gradient
+through K1-K5 (their backward the plain versions' VJP) against the CPU.
 
 Marked `cuda`; without a CUDA device every test skips. On a GPU machine:
 
@@ -29,8 +30,9 @@ import pytest
 import torch
 
 from chip_smoke import (
-    BACKWARD_TOL, PATH_CONFIG, TOL_ENV, TOL_OBJ, TRACKS_BO, backward_error, ipm_shaped_h,
-    ipm_start, k4_args, make_env, random_qp, stacked_laps,
+    BACKWARD_TOL, NOMINAL_KERNELS, PATH_CONFIG, TOL_ENV, TOL_GRAD, TOL_OBJ, TRACKS_BO,
+    backward_error, diffmode_gradient, diffmode_references, grad_gap, ipm_shaped_h, ipm_start,
+    k4_args, make_env, random_qp, stacked_laps,
 )
 from tum_control_tpu_torch.api import build_controller, build_simulation
 from tum_control_tpu_torch.config import MPCConfig, SimConfig
@@ -604,3 +606,17 @@ def test_run_main_single_scenario_goes_through_every_kernel(dev, tmp_path):
         assert np.isfinite(v).all(), k
     assert (logs["simSolverDebug"][:, 1] > 0).all()
     assert summary["solver_ok_frac"] == 1.0 and wall > 0
+
+
+def test_tire_gradient_through_the_kernels_matches_cpu(dev):
+    """The closed-loop tire gradient on the card, K1-K5 in the forward and the
+    plain versions' VJP in the backward (ops/diffmode.py), against the
+    nearest of the CPU's reference gradients per component, as chip_smoke's
+    diffmode phase (TOL_GRAD: the float32 loop's gradient is bimodal there)."""
+    build.reset_launches()
+    g32 = diffmode_gradient(dev, torch.float32)[0]
+    for name in NOMINAL_KERNELS:
+        assert build.LAUNCHES[name] > 0, name
+    refs = diffmode_references(diffmode_gradient("cpu", torch.float64)[0])
+    gaps = {name: grad_gap(g32, r) for name, r in refs.items()}
+    assert min(float(g.max()) for g in gaps.values()) <= TOL_GRAD, gaps

@@ -15,10 +15,13 @@ Idiom differences from the JAX package:
 Every Pallas TPU kernel of the JAX package (K1-K8) is a hand-written CUDA
 C++ kernel for sm_90a under `csrc/`, bound through `ops/kernels/`. Each kernel
 wrapper dispatches by tensor: a CPU tensor runs the plain PyTorch version,
-a CUDA float32 tensor launches the kernel, anything else raises.
+a CUDA float32 tensor launches the kernel, anything else raises. On the
+card a kernel's backward is its plain version's VJP (ops/diffmode.py), so
+autograd runs through the closed loop there as on the CPU.
 
-Entry points (`api.build_simulation`) run on `cuda` unless the caller asks
-for `device="cpu"`.
+Entry points (`api.build_simulation`, the `python -m` entry modules, the
+serving loop `deploy_rt` and `parallel/distributed.py`) run on `cuda` unless
+the caller asks for `device="cpu"`.
 """
 
 __version__ = "0.1.0"

@@ -26,11 +26,13 @@ from tum_control_tpu_torch.track.trajectory import initial_state, load_ref_traje
 
 
 def build_controller(mpc_cfg: MPCConfig, sim_cfg: SimConfig, config_path: str = None,
-                     device=None, dtype=torch.float32):
+                     device=None, dtype=torch.float32, tire_params=None):
+    """`tire_params` (a TireParams, e.g. of 0-d tensors under autograd,
+    params.scaled_tire_params) replaces the tire file's."""
     device = resolve_device(device)
     config_path = config_path or cfg_mod.DEFAULT_CONFIG_PATH
     vp = load_vehicle_params(config_path, sim_cfg.veh_params_file_MPC)
-    tp = load_tire_params(config_path, sim_cfg.tire_params_file_MPC)
+    tp = tire_params or load_tire_params(config_path, sim_cfg.tire_params_file_MPC)
     gg = GGTables(*load_gg_table(config_path, mpc_cfg.lookuptable_gg_limits),
                   device=device, dtype=dtype)
     name = mpc_cfg.controller.lower()
@@ -107,18 +109,20 @@ def _wrap_wmpc(ctrl, mpc_cfg: MPCConfig, sim_cfg: SimConfig, device, dtype):
 
 
 def build_simulation(sim_cfg: SimConfig, mpc_cfg: MPCConfig, config_path: str = None,
-                     device=None, dtype=torch.float32):
+                     device=None, dtype=torch.float32, tire_params=None):
     """Returns (sim, x0_mpc (8,), x0_sim (7,), traj, track); batch the initial
     states (e.g. `x0_mpc[None]` or parallel/mesh.py::batched_scenarios)
-    before `sim.run`."""
+    before `sim.run`. `tire_params` replaces the tires of both the plant and
+    the controller (build_controller)."""
     device = resolve_device(device)
     config_path = config_path or cfg_mod.DEFAULT_CONFIG_PATH
-    controller = build_controller(mpc_cfg, sim_cfg, config_path, device=device, dtype=dtype)
+    controller = build_controller(mpc_cfg, sim_cfg, config_path, device=device, dtype=dtype,
+                                  tire_params=tire_params)
     ref_traj_path = os.path.join(sim_cfg.trajectory_path, sim_cfg.ref_traj_file)
     traj = load_ref_trajectory(ref_traj_path, dtype=dtype, device=device)
     track = load_track(os.path.join(sim_cfg.trajectory_path, sim_cfg.track_file))
     vp_sim = load_vehicle_params(config_path, sim_cfg.veh_params_file_simulator)
-    tp_sim = load_tire_params(config_path, sim_cfg.tire_params_file_simulator)
+    tp_sim = tire_params or load_tire_params(config_path, sim_cfg.tire_params_file_simulator)
     x0_mpc, x0_sim = initial_state(ref_traj_path, sim_cfg.idx_ref_start)
     dist_deriv = disturbance_config(
         sim_cfg.disturbance_type_derivatives, sim_cfg.w_derivatives,

@@ -23,6 +23,13 @@ G_ACC = 9.81
 VLONG_EPS = 1e-3  # below this longitudinal speed, slip angles are forced to 0
 
 
+def _scalar(fn_math, fn_torch, v):
+    """`fn_math(v)` of a Python float, `fn_torch(v)` of a tensor: tire
+    parameters may be 0-d tensors under autograd (params.scaled_tire_params),
+    which the math module would turn into floats and cut from the graph."""
+    return fn_torch(v) if isinstance(v, torch.Tensor) else fn_math(v)
+
+
 def _pacejka(alpha, B, C, D, E):
     """Pacejka 'magic formula' lateral force at constant tyre load."""
     Ba = B * alpha
@@ -41,8 +48,8 @@ def lateral_forces(vlong, vlat, yawrate, delta_f, a, vp: VehicleParams, tp: Tire
     Fr_r = fr * Fz_r
 
     # banking + aero (banking = 0 in all shipped configs)
-    Fbank_x = vp.m * G_ACC * math.sin(vp.banking) * math.sin(tp.mu)
-    Fbank_y = vp.m * G_ACC * math.sin(vp.banking) * math.cos(tp.mu)
+    Fbank_x = vp.m * G_ACC * math.sin(vp.banking) * _scalar(math.sin, torch.sin, tp.mu)
+    Fbank_y = vp.m * G_ACC * math.sin(vp.banking) * _scalar(math.cos, torch.cos, tp.mu)
     Faero = 0.5 * vp.ro * vp.S * vp.Cd * vlong**2
 
     # longitudinal tire forces: rear-driven powertrain, zero brake split
@@ -60,8 +67,8 @@ def lateral_forces(vlong, vlat, yawrate, delta_f, a, vp: VehicleParams, tp: Tire
     # Pacejka lateral forces + combined-slip de-rating, cos(arcsin(g)) = sqrt(1 - g^2)
     Fy_f_lat = _pacejka(alpha_f, tp.Bf, tp.Cf, tp.Df, tp.Ef)
     Fy_r_lat = _pacejka(alpha_r, tp.Br, tp.Cr, tp.Dr, tp.Er)
-    Fmax_f = math.sqrt(Fz_f**2 + (tp.Cf * Fz_f) ** 2)
-    Fmax_r = math.sqrt(Fz_r**2 + (tp.Cr * Fz_r) ** 2)
+    Fmax_f = _scalar(math.sqrt, torch.sqrt, Fz_f**2 + (tp.Cf * Fz_f) ** 2)
+    Fmax_r = _scalar(math.sqrt, torch.sqrt, Fz_r**2 + (tp.Cr * Fz_r) ** 2)
     Gy_f = torch.clamp(Fx_f / Fmax_f, -0.98, 0.98)
     Gy_r = torch.clamp(Fx_r / Fmax_r, -0.98, 0.98)
     Fy_f = Fy_f_lat * torch.sqrt(1.0 - Gy_f**2)

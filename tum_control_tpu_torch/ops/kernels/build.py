@@ -141,8 +141,8 @@ def check_status(fn_name: str, status: int):
 
 def use_kernel(*tensors: torch.Tensor) -> bool:
     """Dispatch rule shared by every wrapper: False for CPU tensors (plain
-    PyTorch version), True for CUDA float32 tensors (the kernel); anything
-    else raises."""
+    PyTorch version), True for CUDA float32 tensors (the kernel, launched
+    through ops/diffmode.py::kernel_with_plain_vjp); anything else raises."""
     if {t.device.type for t in tensors} == {"cpu"}:
         return False
     check_kernel_inputs(*tensors)

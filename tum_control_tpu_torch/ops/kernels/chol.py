@@ -37,6 +37,7 @@ from typing import NamedTuple
 
 import torch
 
+from tum_control_tpu_torch.ops.diffmode import kernel_with_plain_vjp
 from tum_control_tpu_torch.ops.kernels import build
 
 MAX_N_CHOL = 128     # csrc/chol.cu::CHOL_MAX_N, the factorization's and the solve's limit
@@ -88,30 +89,36 @@ def chol_solve_plan(n: int) -> SolvePlan:
 
 
 def cholesky_ref(H):
-    """(B, n, n) SPD -> lower factor L (B, n, n); reads the lower triangle."""
+    """(B, n, n) SPD -> lower factor L (B, n, n); reads the lower triangle.
+
+    Right-looking elimination, written out of place (each step makes the
+    trailing block anew instead of updating it) so that reverse mode runs
+    through it (the kernel's backward, ops/diffmode.py); the arithmetic is
+    that of the in-place loop."""
     n = H.shape[-1]
-    A = H.clone()
-    L = torch.zeros_like(H)
+    A = H
+    cols = []
     for j in range(n):
-        d = torch.sqrt(A[:, j, j])
-        col = A[:, j + 1:, j] / d[:, None]
-        L[:, j, j] = d
-        L[:, j + 1:, j] = col
-        A[:, j + 1:, j + 1:] -= col[:, :, None] * col[:, None, :]
-    return L
+        d = torch.sqrt(A[:, 0, 0])
+        col = A[:, 1:, 0] / d[:, None]
+        cols.append(torch.nn.functional.pad(torch.cat([d[:, None], col], dim=1), (j, 0)))
+        A = A[:, 1:, 1:] - col[:, :, None] * col[:, None, :]
+    return torch.stack(cols, dim=2)
 
 
 def chol_solve_ref(L, b):
-    """(B, n, n) lower factor, (B, n) -> x with L L^T x = b."""
+    """(B, n, n) lower factor, (B, n) -> x with L L^T x = b: forward, then
+    backward substitution, out of place as `cholesky_ref`."""
     n = L.shape[-1]
-    x = b.clone()
+    r, y = b, []
     for j in range(n):
-        x[:, j] = x[:, j] / L[:, j, j]
-        x[:, j + 1:] -= L[:, j + 1:, j] * x[:, j:j + 1]
+        y.append(r[:, 0] / L[:, j, j])
+        r = r[:, 1:] - L[:, j + 1:, j] * y[j][:, None]
+    r, x = torch.stack(y, dim=1), [None] * n
     for j in range(n - 1, -1, -1):
-        x[:, j] = x[:, j] / L[:, j, j]
-        x[:, :j] -= L[:, j, :j] * x[:, j:j + 1]
-    return x
+        x[j] = r[:, j] / L[:, j, j]
+        r = r[:, :j] - L[:, j, :j] * x[j][:, None]
+    return torch.stack(x, dim=1)
 
 
 def _check_square(H):
@@ -166,41 +173,44 @@ def chol_solve_cuda(L, b):
 def cholesky(H):
     """Batched lower Cholesky factor; dispatches by device (module doc)."""
     if build.use_kernel(H):
-        return cholesky_cuda(H)
+        return kernel_with_plain_vjp(cholesky_cuda, cholesky_ref, H)
     return cholesky_ref(H)
 
 
 def chol_solve(L, b):
     """Batched L L^T x = b; dispatches by device (module doc)."""
     if build.use_kernel(L, b):
-        return chol_solve_cuda(L, b)
+        return kernel_with_plain_vjp(chol_solve_cuda, chol_solve_ref, L, b)
     return chol_solve_ref(L, b)
 
 
 def cholesky_unblocked_ref(H):
     """(B, n, n) SPD -> lower factor L by K7's pivot loop: column j scaled by
-    rsqrt(a_jj), then the rank-1 update of the trailing lower triangle."""
+    rsqrt(a_jj), then the rank-1 update of the trailing block; out of place,
+    as `cholesky_ref`."""
     n = H.shape[-1]
-    A = H.clone()
+    A, cols = H, []
     for j in range(n):
-        col = A[:, j:, j] * torch.rsqrt(A[:, j, j])[:, None]
-        A[:, j:, j] = col
-        A[:, j + 1:, j + 1:] -= col[:, 1:, None] * col[:, None, 1:]
-    return torch.tril(A)
+        col = A[:, :, 0] * torch.rsqrt(A[:, 0, 0])[:, None]
+        cols.append(torch.nn.functional.pad(col, (j, 0)))
+        A = A[:, 1:, 1:] - col[:, 1:, None] * col[:, None, 1:]
+    return torch.stack(cols, dim=2)
 
 
 def chol_solve_unblocked_ref(L, b):
     """(B, n, n) lower factor, (B, n) -> x with L L^T x = b by K7's column-wise
-    forward and row-wise backward substitution (multiplying by 1 / L_jj)."""
+    forward and row-wise backward substitution (multiplying by 1 / L_jj);
+    out of place, as `chol_solve_ref`."""
     n = L.shape[-1]
-    x = b.clone()
+    r, y = b, []
     for j in range(n):
-        x[:, j] = x[:, j] * (1.0 / L[:, j, j])
-        x[:, j + 1:] -= L[:, j + 1:, j] * x[:, j:j + 1]
+        y.append(r[:, 0] * (1.0 / L[:, j, j]))
+        r = r[:, 1:] - L[:, j + 1:, j] * y[j][:, None]
+    r, x = torch.stack(y, dim=1), [None] * n
     for j in range(n - 1, -1, -1):
-        x[:, j] = x[:, j] * (1.0 / L[:, j, j])
-        x[:, :j] -= L[:, j, :j] * x[:, j:j + 1]
-    return x
+        x[j] = r[:, j] * (1.0 / L[:, j, j])
+        r = r[:, :j] - L[:, j, :j] * x[j][:, None]
+    return torch.stack(x, dim=1)
 
 
 def cholesky_unblocked_cuda(H):
@@ -214,12 +224,12 @@ def chol_solve_unblocked_cuda(L, b):
 def cholesky_unblocked(H):
     """Batched lower Cholesky factor (K7); dispatches by device."""
     if build.use_kernel(H):
-        return cholesky_unblocked_cuda(H)
+        return kernel_with_plain_vjp(cholesky_unblocked_cuda, cholesky_unblocked_ref, H)
     return cholesky_unblocked_ref(H)
 
 
 def chol_solve_unblocked(L, b):
     """Batched L L^T x = b (K7); dispatches by device."""
     if build.use_kernel(L, b):
-        return chol_solve_unblocked_cuda(L, b)
+        return kernel_with_plain_vjp(chol_solve_unblocked_cuda, chol_solve_unblocked_ref, L, b)
     return chol_solve_unblocked_ref(L, b)

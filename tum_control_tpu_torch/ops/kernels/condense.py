@@ -45,6 +45,7 @@ from typing import NamedTuple
 
 import torch
 
+from tum_control_tpu_torch.ops.diffmode import kernel_with_plain_vjp
 from tum_control_tpu_torch.ops.kernels import build
 
 MAX_NX = 16           # csrc/condense.cu::COND_MAX_NX: a column's nx values in registers
@@ -110,7 +111,7 @@ def condense_cuda(A, B, xi, d0):
 def condense(A, B, xi, d0):
     """Batched condensing; dispatches by device (module doc)."""
     if build.use_kernel(A, B, xi, d0):
-        return condense_cuda(A, B, xi, d0)
+        return kernel_with_plain_vjp(condense_cuda, condense_ref, A, B, xi, d0)
     return condense_ref(A, B, xi, d0)
 
 
@@ -157,7 +158,8 @@ def condense_from_cuda(A, B, xi, e0, G0, col0: int):
 def condense_from(A, B, xi, e0, G0, col0: int):
     """Init-carry condensing over a stage sub-range; dispatches by device."""
     if build.use_kernel(A, B, xi, e0, G0):
-        return condense_from_cuda(A, B, xi, e0, G0, col0)
+        return kernel_with_plain_vjp(lambda *a: condense_from_cuda(*a, col0),
+                                     lambda *a: condense_from_ref(*a, col0), A, B, xi, e0, G0)
     return condense_from_ref(A, B, xi, e0, G0, col0)
 
 
@@ -202,5 +204,5 @@ def condense_mxu_cuda(A, B, xi, d0):
 def condense_mxu(A, B, xi, d0):
     """Augmented-carry condensing (K8); dispatches by device (module doc)."""
     if build.use_kernel(A, B, xi, d0):
-        return condense_mxu_cuda(A, B, xi, d0)
+        return kernel_with_plain_vjp(condense_mxu_cuda, condense_mxu_ref, A, B, xi, d0)
     return condense_mxu_ref(A, B, xi, d0)

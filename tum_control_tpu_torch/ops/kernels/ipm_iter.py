@@ -24,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from tum_control_tpu_torch.ops.diffmode import kernel_with_plain_vjp
 from tum_control_tpu_torch.ops.kernels import build
 from tum_control_tpu_torch.ops.kernels.chol import chol_solve_ref
 
@@ -214,5 +215,13 @@ def fused_iteration_cuda(L, G, rw, c0, lb, ub, z1, z2, nt, carry, gamma_ftb: flo
 def fused_iteration(L, G, rw, c0, lb, ub, z1, z2, nt, carry, gamma_ftb: float = 0.99):
     """One batched Mehrotra iteration; dispatches by device (module doc)."""
     if build.use_kernel(L, G, rw, c0, lb, ub, z1, z2, nt, *carry):
-        return fused_iteration_cuda(L, G, rw, c0, lb, ub, z1, z2, nt, carry, gamma_ftb)
+        def flat(fn):  # (19 tensors) -> carry' (10), sigma, unconverged
+            def run(*a):
+                out, sig, unc = fn(*a[:9], a[9:], gamma_ftb)
+                return (*out, sig, unc)
+            return run
+
+        *out, sig, unc = kernel_with_plain_vjp(flat(fused_iteration_cuda), flat(iteration_ref),
+                                               L, G, rw, c0, lb, ub, z1, z2, nt, *carry)
+        return tuple(out), sig, unc
     return iteration_ref(L, G, rw, c0, lb, ub, z1, z2, nt, carry, gamma_ftb)

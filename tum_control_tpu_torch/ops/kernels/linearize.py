@@ -20,6 +20,7 @@ import torch
 
 from tum_control_tpu_torch.models.integrators import rk4_multistep
 from tum_control_tpu_torch.models.vehicle_stm import G_ACC, pred_ode
+from tum_control_tpu_torch.ops.diffmode import kernel_with_plain_vjp
 from tum_control_tpu_torch.ops.kernels import build
 
 
@@ -77,7 +78,9 @@ def linearize_ref(XU, step, nx: int):
 def kernel_params(vp, tp, dt: float, n_sub: int):
     """The model constants in csrc/model.cuh's ModelParams order (the
     reciprocals of its constant divisors last), then the RK4 step sizes h,
-    h/2, h/6 (computed in double, as the plain version's Python floats)."""
+    h/2, h/6 (computed in double, as the plain version's Python floats).
+    Tire parameters given as tensors enter by value."""
+    tp = type(tp)(*(float(v.detach()) if isinstance(v, torch.Tensor) else v for v in tp))
     Fz_f = vp.m * vp.lr * G_ACC / (vp.lf + vp.lr)
     Fz_r = vp.m * vp.lf * G_ACC / (vp.lf + vp.lr)
     Fmax_f = math.sqrt(Fz_f**2 + (tp.Cf * Fz_f) ** 2)
@@ -112,14 +115,28 @@ def linearize_cuda(XU, prm, n_sub: int, nx: int = 8):
 
 
 class LinearizeRollout:
-    """XU (B, N, nx+nu) -> (F (B, N, nx), J (B, N, nx, nx+nu))."""
+    """XU (B, N, nx+nu) -> (F (B, N, nx), J (B, N, nx, nx+nu)).
+
+    Tire parameters may be 0-d tensors (e.g. under autograd): the kernel
+    takes their values, and its backward (ops/diffmode.py) differentiates
+    the plain version in XU and in those tensors."""
 
     def __init__(self, vp, tp, dt: float, n_sub: int, nx: int = 8):
         self.nx, self.n_sub = nx, n_sub
+        self.vp, self.tp, self.dt = vp, tp, dt
         self.step = make_step(vp, tp, dt, n_sub)
         self.prm = kernel_params(vp, tp, dt, n_sub)
+        self.tires = tuple(v for v in tp if isinstance(v, torch.Tensor))
+
+    def _plain(self, XU, *tires):
+        """linearize_ref with the tensor-valued tire parameters `tires`."""
+        it = iter(tires)
+        tp = type(self.tp)(*(next(it) if isinstance(v, torch.Tensor) else v for v in self.tp))
+        return linearize_ref(XU, make_step(self.vp, tp, self.dt, self.n_sub), self.nx)
 
     def __call__(self, XU):
         if build.use_kernel(XU):
-            return linearize_cuda(XU, self.prm, self.n_sub, self.nx)
+            return kernel_with_plain_vjp(
+                lambda XU, *_: linearize_cuda(XU, self.prm, self.n_sub, self.nx), self._plain,
+                XU, *self.tires)
         return linearize_ref(XU, self.step, self.nx)

@@ -1,1 +1,2 @@
-"""Scenario batching (multi-GPU sharding waits for its slice)."""
+"""Scenario batching (mesh.py) and sharding across processes, one per card
+(distributed.py)."""

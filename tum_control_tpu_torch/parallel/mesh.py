@@ -1,5 +1,6 @@
 """Scenario batches (port of tum_control_tpu/parallel/mesh.py::batched_scenarios;
-the device-mesh helpers wait for the multi-GPU slice)."""
+a batch is sharded across processes, one per card, by parallel/distributed.py
+in place of the JAX package's device mesh)."""
 from __future__ import annotations
 
 import numpy as np

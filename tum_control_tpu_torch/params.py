@@ -55,6 +55,17 @@ class VehicleParams(NamedTuple):
     fr4: float = 0.0003
 
 
+def scaled_tire_params(tp: TireParams, theta) -> TireParams:
+    """`tp` with its 8 Pacejka coefficients (Bf, Cf, Df, Ef, Br, Cr, Dr, Er)
+    multiplied by exp(theta): theta a (8,) tensor of log-multipliers, so the
+    result holds 0-d tensors that autograd follows back to theta (the
+    parameterization of tools/fit_tires_closedloop.py); mu stays a float."""
+    import torch
+
+    base = torch.tensor(tp[:8], dtype=theta.dtype, device=theta.device)
+    return TireParams(*torch.exp(torch.log(base) + theta).unbind(), mu=tp.mu)
+
+
 def vehicle_params_from_dict(d: dict) -> VehicleParams:
     """Build VehicleParams from a reference-format YAML dict."""
     banking = float(np.deg2rad(d.get("banking_deg", 0.0)))

@@ -1,2 +1,2 @@
-"""Host-side utilities: checkpoints and the plot palette (port of
-tum_control_tpu/utils)."""
+"""Host-side utilities: checkpoints, the plot palette and the native
+real-time executor (port of tum_control_tpu/utils)."""
