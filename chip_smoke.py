@@ -11,7 +11,9 @@ Phases (any failure raises and the script exits non-zero):
      scenarios; nominal: N = 38, nx = 8, nu = 2, nz = 76, 78 general rows;
      K1 also at SNMPC's 88 elements per scenario and one RK4 substep; K6 at
      SNMPC's nominal tail, 33 stages from the carry of its 5 head stages;
-     K8 on K2's inputs, K7 on K3's and K5's, since no path launches them;
+     K8 on K2's inputs, bitwise against K2 there and at B = 1, and at
+     N = 64 (nz + 1 = 129 columns), K7 on K3's and K5's, since no path
+     launches them;
      K1-K5 also at the entry paths' batches, ENTRY_BATCHES: one scenario
      and 52) on inputs from a seeded numpy generator, holds it against its plain
      PyTorch version on the same inputs (K3 and K7 also on an
@@ -96,7 +98,17 @@ Phases (any failure raises and the script exits non-zero):
      card in float32 against the CPU float64 step, per state column, per
      diagonal entry of Sigma and per entry in units of sqrt(S_ii S_jj)
      (TOL_AUG);
- 10. prints the seconds each phase took, one {"kernels": [...]} line
+ 10. `tools`: the nine measurement and diagnostic tools
+     (tum_control_tpu_torch/tools) at B = 128 and cut depth, in child
+     processes (TOOLS_MAIN; TOOLS_SIDE beside phase 8's CPU re-solves, at
+     a lower priority): each must exit normally, return and print finite
+     numbers, and launch its path's kernels (K1-K5; on the SNMPC K1,
+     K3-K6; snmpc_dissect K1 and K6) and no other; prints each one's
+     headline numbers beside the card's name and power limit,
+     diag_precision's default and --tf32 runs side by side, and
+     profile_step's device kernels per stage beside the loops' kernels per
+     step;
+ 11. prints the seconds each phase took, one {"kernels": [...]} line
      (launches per path, and per closed-loop step on the entry, serving,
      sharding and differentiable paths; K7 and K8, which no path launches,
      with 0 and "path": null) and, last, the device line.
@@ -262,6 +274,36 @@ TOL_GRAD, GRAD_FLOOR = 1e-3, 1e-3
 # CPU's own float32 step lies within 4e-7, 1.8e-6 and 2.5e-6 of float64
 TOL_AUG = 1e-5
 
+# phase 10, the measurement and diagnostic tools (tum_control_tpu_torch/tools),
+# each at full width (B = 128 scenarios of the shipped N = 38; stage_bench and
+# profile_step on the nominal NMPC and the SNMPC) and cut depth (tens of steps
+# or repeats), in child processes (`--tools-child`), so that no profiler
+# session of this process slows their host clocks: TOOLS_MAIN in one, the two
+# tools that take profiler windows last (profile_step times both
+# controllers' stages before its first window, roofline its batches before
+# its windows); diag_precision --tf32 (the TF32 flags are global to a
+# process) and dump_qps (one QP and its scipy re-solve on the host), whose
+# times are no measurements, each alone in a process at a lower priority
+# (TOOLS_SIDE_NICE) beside the CPU re-solves of phase 8
+TOOLS_MAIN = [
+    ("batch_sweep", ["1", "128", "1024", "--steps", "20", "--settle", "10"]),
+    ("sweep_qpiters", ["3", "4", "--batch", "128", "--steps", "20", "--settle", "10"]),
+    ("diag_tail", ["128", "20", "--settle", "10"]),
+    ("diag_precision", ["--steps", "20", "--settle", "10"]),
+    ("stage_bench", ["128", "10", "nominal"]),
+    ("stage_bench", ["128", "10", "snmpc"]),
+    ("snmpc_dissect", ["128", "10"]),
+    ("profile_step", ["128", "--repeats", "10", "--controller", "nominal", "snmpc"]),
+    ("roofline", ["128", "1024", "--steps", "10"]),
+]
+TOOLS_SIDE_NICE = 10
+TOOLS_SIDE = [[("diag_precision", ["--tf32", "--steps", "20", "--settle", "10"])],
+              [("dump_qps", ["1", "--out", os.path.join("build", "chip_smoke",
+                                                          "qp_anchor_torch.npz")])]]
+# what a tool returns that is no headline number (carries, outputs, QPs)
+TOOL_BULK = {"carry", "out", "qps", "w_ipm", "w_scipy"}
+NONFINITE = re.compile(r"\b(nan|inf)\b", re.IGNORECASE)
+
 # tolerance of each kernel against its plain version on the same inputs, held
 # for every output on its own (for K1 every column of J) as
 # max |kernel - plain| <= TOL * max |plain|. float32 on both sides in
@@ -311,9 +353,6 @@ REPLACES = {
     "cholesky_unblocked": "tum_control_tpu/ops/pallas_kernels/chol.py:33",
     "chol_solve_unblocked": "tum_control_tpu/ops/pallas_kernels/chol.py:58",
 }
-# the csrc kernels' symbols, as the profiler names them
-HAND_KERNEL = re.compile(r"\b(linearize_kernel|condense_kernel|condense_aug_kernel|"
-                         r"chol_factor_kernel|chol_solve_kernel|ipm_iter_kernel)\b")
 SOURCE = {
     "linearize": "tum_control_tpu_torch/csrc/linearize.cu",
     "condense": "tum_control_tpu_torch/csrc/condense.cu",
@@ -401,23 +440,20 @@ def device_ms(fn, launches=LAUNCHES_TIMED):
     return None
 
 
-def _device_us(r):
-    """Device microseconds of one `key_averages()` row."""
-    return getattr(r, "self_device_time_total", 0.0) or getattr(r, "self_cuda_time_total", 0.0)
-
-
 def profiled_ms(fn, launches=LAUNCHES_TIMED):
     """Device milliseconds per call of `fn` by torch.profiler: the sum of
     the device time of every kernel the calls launched, over `launches`
     back-to-back calls. None when the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
+
+    from tum_control_tpu_torch.tools.common import device_us
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(launches):
             fn()
         torch.cuda.synchronize()
-    us = sum(_device_us(r) for r in prof.key_averages() if str(r.device_type).endswith("CUDA"))
+    us = sum(device_us(r) for r in prof.key_averages() if str(r.device_type).endswith("CUDA"))
     return us / launches / 1e3 if us > 0 else None
 
 
@@ -632,9 +668,26 @@ def kernel_phase(dev):
         d0 = torch.tensor(rng.normal(0, 0.1, (batch, NX)), dtype=torch.float32, device=dev)
         return J[..., :NX].contiguous(), J[..., NX:].contiguous(), xi, d0
 
-    def condense_ops(batch):
+    def condense_ops(batch, n_st=N):
         # A_k Gam_k needs nx^2 (k nu) FMAs (columns past k nu are zero), e: nx^2
-        return batch * sum(2 * NX * NX * (k * NU + 1) + 2 * NX * NU for k in range(N))
+        return batch * sum(2 * NX * NX * (k * NU + 1) + 2 * NX * NU for k in range(n_st))
+
+    def hold_k8(args8, k2_out, case):
+        """K8 against its plain version and, bitwise, against K2's outputs
+        `k2_out` on the same inputs."""
+        e8, G8 = condense_mxu_cuda(*args8)
+        e8p, G8p = condense_mxu_ref(*args8)
+        err = compare("condense_mxu", [("e", e8, e8p), ("Gamma", G8, G8p)])
+        de, dg = (float((a - b).abs().max()) for a, b in ((e8, k2_out[0]), (G8, k2_out[1])))
+        say(f"[condense_mxu/{case}] against K2 on the same inputs: max |e8 - e2| {de:.3e}, "
+            f"max |Gamma8 - Gamma2| {dg:.3e}")
+        check(torch.equal(e8, k2_out[0]) and torch.equal(G8, k2_out[1]),
+              f"condense_mxu/{case}: K8 differs from K2 ({de:.3e}, {dg:.3e})")
+        batch, n_st = args8[1].shape[:2]
+        record("condense_mxu", err, functools.partial(condense_mxu_cuda, *args8),
+               functools.partial(condense_mxu_ref, *args8),
+               nbytes(*args8) + batch * (n_st + 1) * NX * (n_st * NU + 1) * 4,
+               condense_ops(batch, n_st), case=case)
 
     def hold_condense(args2, case):
         e, Gam = condense_cuda(*args2)
@@ -712,18 +765,22 @@ def kernel_phase(dev):
     e, Gam = hold_condense(args2, "nominal")
 
     # K8 on the same inputs: one augmented (B, N+1, nx, nz+1) output, held
-    # per output (e, Gamma); the same active-triangle operation count
-    e8, G8 = condense_mxu_cuda(A_, B_, xi, d0)
-    e8p, G8p = condense_mxu_ref(A_, B_, xi, d0)
-    err = compare("condense_mxu", [("e", e8, e8p), ("Gamma", G8, G8p)])
-    say(f"[condense_mxu] against K2 on the same inputs: max |e8 - e2| "
-        f"{float((e8 - e).abs().max()):.3e}, "
-        f"max |Gamma8 - Gamma2| {float((G8 - Gam).abs().max()):.3e}")
-    record("condense_mxu", err, lambda: condense_mxu_cuda(A_, B_, xi, d0),
-           lambda: condense_mxu_ref(A_, B_, xi, d0),
-           nbytes(A_, B_, xi, d0) + B * (N + 1) * NX * (NZ + 1) * 4, condense_ops(B))
-    say(f"[condense_mxu] K2 again in the same place: "
-        f"{device_ms(lambda: condense_cuda(A_, B_, xi, d0)):.5f} ms device")
+    # per output (e, Gamma) against its plain version and bitwise against
+    # K2's (K8 is K2's kernel with the augmented store); the same
+    # active-triangle operation count. Then K8 at N = 64 (nz + 1 = 129
+    # columns, five blocks a scenario) against its plain version.
+    hold_k8(args2, (e, Gam), "nominal")
+    k2_ms = device_ms(lambda: condense_cuda(A_, B_, xi, d0))
+    k8_ms = results["condense_mxu"]["ms"]
+    say(f"[condense_mxu] K2 again in the same place: {k2_ms:.5f} ms device; K8 / K2 "
+        f"{k8_ms / k2_ms:.3f} (target <= 1.25)")
+    results["condense_mxu"]["k2_ms_same_place"] = k2_ms
+    rng64 = np.random.default_rng(64)
+    t64 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    args64 = (t64(0.97 * np.eye(NX) + rng64.normal(0, 0.05, (B, 64, NX, NX))),
+              t64(rng64.normal(0, 1, (B, 64, NX, NU))), t64(rng64.normal(0, 0.01, (B, 64, NX))),
+              t64(rng64.normal(0, 0.1, (B, NX))))
+    hold_k8(args64, condense_cuda(*args64), "n64")
 
     # K1 at SNMPC's shapes: one RK4 substep; the head rows are every copy of
     # the fanned state at the 5 head stages, the tail rows the nominal copy
@@ -828,7 +885,10 @@ def kernel_phase(dev):
     for batch in ENTRY_BATCHES:
         case = f"b{batch}"
         _, XUb = lap_inputs(batch)
-        hold_condense(condense_inputs(hold_linearize(XUb, lr, case)), case)
+        args2b = condense_inputs(hold_linearize(XUb, lr, case))
+        k2b = hold_condense(args2b, case)
+        if batch == 1:
+            hold_k8(args2b, k2b, case)
         qpb = random_qp(rng, dev, batch)
         carryb, ntb, Hb = ipm_start(qpb)
         Lb = hold_cholesky("cholesky", Hb, case)
@@ -878,8 +938,11 @@ def move_carry(carry, device, dtype):
 def profile_window(run, n_prof, step_s, tag):
     """A short torch.profiler window of a loop: `run()` drives `n_prof`
     closed-loop steps; device time by kernel and the device's busy share of
-    the untraced step (`step_s` seconds)."""
+    the untraced step (`step_s` seconds). Returns the device kernels per
+    step (None when the trace holds no device time)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from tum_control_tpu_torch.tools.common import HAND_KERNEL, device_us
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -887,11 +950,11 @@ def profile_window(run, n_prof, step_s, tag):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
     kernels = [r for r in prof.key_averages() if str(r.device_type).endswith("CUDA")]
-    dev_us = sum(_device_us(r) for r in kernels)
+    dev_us = sum(device_us(r) for r in kernels)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, f"chip_smoke_profile_{tag}.txt"), "w") as fh:
-        fh.write("\n".join(f"{_device_us(r):12.1f} us {r.count:7d}  {r.key}"
-                           for r in sorted(kernels, key=lambda r: -_device_us(r))))
+        fh.write("\n".join(f"{device_us(r):12.1f} us {r.count:7d}  {r.key}"
+                           for r in sorted(kernels, key=lambda r: -device_us(r))))
     say(f"[profile/{tag}] window of {n_prof} steps and its trace: {time.perf_counter() - t0:.1f} s")
     wall_us, step_us = (t1 - t0) * 1e6, step_s * 1e6
     if dev_us > 0:
@@ -899,15 +962,16 @@ def profile_window(run, n_prof, step_s, tag):
             f"kernels/step, device busy {dev_us / n_prof:.1f} us/step; traced wall "
             f"{wall_us / n_prof:.1f} us/step, untraced {step_us:.1f} us/step -> device idle "
             f"share {1 - dev_us / n_prof / step_us:.4f} of the untraced step")
-        for r in sorted(kernels, key=lambda r: -_device_us(r))[:10]:
-            say(f"[profile/{tag}]   {_device_us(r) / n_prof:9.1f} us/step {r.count / n_prof:7.1f}"
+        for r in sorted(kernels, key=lambda r: -device_us(r))[:10]:
+            say(f"[profile/{tag}]   {device_us(r) / n_prof:9.1f} us/step {r.count / n_prof:7.1f}"
                 f" launches/step  {r.key[:80]}")
         hand = [r for r in kernels if HAND_KERNEL.search(r.key)]
         say(f"[profile/{tag}] hand-written kernels: " + "; ".join(
-            f"{HAND_KERNEL.search(r.key).group(1)} {_device_us(r) / n_prof:.1f} us/step in "
-            f"{r.count / n_prof:.1f} launches" for r in sorted(hand, key=lambda r: -_device_us(r))))
-    else:
-        say(f"[profile/{tag}] no device time in the trace: device busy share not measured")
+            f"{HAND_KERNEL.search(r.key).group(1)} {device_us(r) / n_prof:.1f} us/step in "
+            f"{r.count / n_prof:.1f} launches" for r in sorted(hand, key=lambda r: -device_us(r))))
+        return sum(r.count for r in kernels) / n_prof
+    say(f"[profile/{tag}] no device time in the trace: device busy share not measured")
+    return None
 
 
 def check_launches(path, launches):
@@ -1841,6 +1905,153 @@ def robust_utils_phase(dev):
           f"robust_utils: gaps {gx} / {gd} / {gc:.3e}")
 
 
+def tool_kernels(name, argv):
+    """The kernels a tool's run must launch (every other counter stays 0):
+    snmpc_dissect assembles QPs and solves none (K1, K6), a run on the SNMPC
+    launches the snmpc path's, on the nominal NMPC (named, or by default)
+    the nominal path's."""
+    if name == "snmpc_dissect":
+        return ("linearize", "condense_from")
+    paths = [p for p in ("nominal", "snmpc") if p in argv] or ["nominal"]
+    return tuple({k for p in paths for k in PATH_KERNELS[p]})
+
+
+def headline(x):
+    """A tool's returned data without its bulk (TOOL_BULK, tensors, arrays):
+    the numbers it prints, as JSON values."""
+    if isinstance(x, dict):
+        return {str(k): headline(v) for k, v in x.items() if k not in TOOL_BULK
+                and not isinstance(v, (torch.Tensor, np.ndarray))}
+    if isinstance(x, (list, tuple)) and not hasattr(x, "_fields"):
+        return [headline(v) for v in x]
+    if isinstance(x, (bool, int, float, str)) or x is None:
+        return x
+    return str(type(x).__name__)
+
+
+def tools_child(runs, nice):
+    """`--tools-child RUNS NICE`: at niceness NICE, runs each [tool, argv]
+    of RUNS (JSON) in this process on the card, the launch counters reset
+    just before and read just after, and prints the tool's output, then one
+    `TOOL {...}` line: its seconds, launches, whether every number it
+    returned and printed is finite, and its headline numbers. A tool that
+    raises ends the process with a traceback and a non-zero exit."""
+    import contextlib
+    import importlib
+    import io
+    from tum_control_tpu_torch.ops.kernels import build
+    from tum_control_tpu_torch.tools.common import all_finite
+
+    os.nice(nice)
+    for name, argv in runs:
+        mod = importlib.import_module(f"tum_control_tpu_torch.tools.{name}")
+        buf = io.StringIO()
+        build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = mod.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        printed = buf.getvalue()
+        print(printed, end="", flush=True)
+        rec = dict(name=name, argv=argv, seconds=secs, launches=dict(build.LAUNCHES),
+                   finite=all_finite(res) and not NONFINITE.search(printed),
+                   headline=headline(res))
+        print("TOOL " + json.dumps(rec), flush=True)
+    return 0
+
+
+def start_tool_children(groups, nice=0):
+    """Starts each group of (tool, argv) in a child process of its own
+    (`--tools-child`) at niceness `nice`, all at once; returns [(process,
+    log file)]."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    procs = []
+    try:
+        for i, runs in enumerate(groups):
+            log = open(os.path.join(OUT_DIR, f"tools_child_{runs[0][0]}_{i}.log"), "w+")
+            cmd = [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--tools-child",
+                   json.dumps(runs), str(nice)]
+            procs.append((subprocess.Popen(cmd, cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+                                           text=True, env=dict(os.environ, OMP_NUM_THREADS="1")),
+                          log))
+    except BaseException:
+        stop_tool_children(procs)
+        raise
+    return procs
+
+
+def stop_tool_children(procs):
+    for proc, log in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def finish_tool_children(procs, timeout=600):
+    """Waits for the children of start_tool_children and returns their TOOL
+    records in order; fails when a child exits non-zero. No child outlives
+    the call."""
+    try:
+        recs = []
+        for proc, log in procs:
+            rc = proc.wait(timeout=timeout)
+            log.seek(0)
+            out = log.read()
+            for line in out.splitlines():
+                if line.startswith("TOOL "):
+                    recs.append(json.loads(line[5:]))
+                else:
+                    say(f"[tools] | {line}")
+            check(rc == 0, f"tools child {proc.args[3]} exited {rc}:\n{out[-3000:]}")
+        return recs
+    finally:
+        stop_tool_children(procs)
+
+
+def tools_phase(smi, loop_kernels, side_recs):
+    """Phase 10: the nine tools, TOOLS_MAIN in a child process
+    (`side_recs`: TOOLS_SIDE's records, whose children ran beside the CPU
+    re-solves); each must exit normally, return and print finite numbers and
+    launch its kernels (tool_kernels) and no other. Prints each tool's
+    headline numbers beside the card, diag_precision's two modes side by
+    side, and profile_step's kernels per stage against the loops' kernels
+    per step (`loop_kernels`, their profile windows)."""
+    torch.cuda.empty_cache()
+    recs = finish_tool_children(start_tool_children([TOOLS_MAIN])) + side_recs
+    check(sorted({r["name"] for r in recs}) == sorted({n for n, _ in TOOLS_MAIN}
+                                                      | {g[0][0] for g in TOOLS_SIDE}),
+          "a tool did not report")
+    for r in recs:
+        tag = f"[tools/{r['name']} {' '.join(r['argv'])}]"
+        check(r["finite"], f"{tag}: non-finite numbers")
+        for name, n in r["launches"].items():
+            if name in tool_kernels(r["name"], r["argv"]):
+                check(n > 0, f"{tag}: kernel {name} was not launched")
+            else:
+                check(n == 0, f"{tag}: kernel {name} was launched")
+        launched = {k: n for k, n in r["launches"].items() if n}
+        say(f"{tag} {smi}: {r['seconds']:.1f} s; launches {json.dumps(launched)}; "
+            f"{json.dumps(r['headline'])}")
+    prec = [r["headline"] for r in recs if r["name"] == "diag_precision"]
+    for a, b in zip(*prec):
+        say(f"[tools/diag_precision] scenario {a['scen']}: max |lat_dev| default "
+            f"{a['run_max']:.6f} m, tf32 {b['run_max']:.6f} m (difference "
+            f"{b['run_max'] - a['run_max']:+.3e}); ok {a['ok']} / {b['ok']}")
+    for r in recs:
+        if r["name"] != "profile_step":
+            continue
+        for ctrl, h in r["headline"].items():
+            check(all(h[k]["kernels"] for k in h), f"profile_step {ctrl}: a window holds no kernel")
+            parts = sum(h[k]["kernels"] for k in ("planner", "solve (all)", "plant+estimator"))
+            say(f"[tools/profile_step {ctrl}] device kernels: planner + solve + plant+estimator "
+                f"{parts:.0f}, full step {h['full step']['kernels']:.0f}; the {ctrl} loop's "
+                f"profile window {loop_kernels[ctrl]:.0f} per step")
+    return recs
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs on a GPU", file=sys.stderr)
@@ -1871,6 +2082,8 @@ def main():
         return now
 
     t = lap("start and build", t_start)
+    if sys.argv[1:2] == ["--tools-child"]:
+        return tools_child(json.loads(sys.argv[2]), int(sys.argv[3]))
     results, jobs = kernel_phase(dev)
     t = lap("kernel phase", t)
     if "--kernels-only" in sys.argv[1:]:
@@ -1895,30 +2108,43 @@ def main():
     t = lap("distributed", t)
     for path in PATHS:
         run = runs[path]
-        profile_window(functools.partial(run["sim"].run_from, run["carry"], PROFILE_STEPS),
-                       PROFILE_STEPS, run["step_s"], path)
+        run["kernels_per_step"] = profile_window(
+            functools.partial(run["sim"].run_from, run["carry"], PROFILE_STEPS), PROFILE_STEPS,
+            run["step_s"], path)
     ppo, bo = runs["ppo"], runs["bo"]
     tuning_profile_windows(ppo, bo)
     entry_profile_window(runs["main"])
     t = lap("profile windows", t)
     profile_kernels(results, jobs)
     t = lap("kernel profiles", t)
-    for path in PATHS:
-        run = runs[path]
-        cpu_phase(path, run["sim"], move_carry(run["carry0"], dev, torch.float32), PATHS[path][2],
-                  SimConfig(sim_mode=0), MPCConfig(**PATH_CONFIG[path]))
-        t = lap(f"cpu/{path}", t)
-    ppo_cpu_check(ppo)
-    t = lap("cpu/ppo", t)
-    bo_cpu_check(bo)
-    t = lap("cpu/bo", t)
-    for path in ENTRY:
-        cpu_phase(path, **runs[path]["hold"])
-        t = lap(f"cpu/{path}", t)
+    # the tools whose times are not measurements (diag_precision --tf32,
+    # dump_qps's scipy re-solve on the host) run beside the CPU re-solves
+    side = start_tool_children(TOOLS_SIDE, TOOLS_SIDE_NICE)
+    try:
+        for path in PATHS:
+            run = runs[path]
+            cpu_phase(path, run["sim"], move_carry(run["carry0"], dev, torch.float32),
+                      PATHS[path][2], SimConfig(sim_mode=0), MPCConfig(**PATH_CONFIG[path]))
+            t = lap(f"cpu/{path}", t)
+        ppo_cpu_check(ppo)
+        t = lap("cpu/ppo", t)
+        bo_cpu_check(bo)
+        t = lap("cpu/bo", t)
+        for path in ENTRY:
+            cpu_phase(path, **runs[path]["hold"])
+            t = lap(f"cpu/{path}", t)
+    except BaseException:
+        stop_tool_children(side)
+        raise
+    side_recs = finish_tool_children(side)
+    t = lap("tools beside the CPU re-solves", t)
     runs["diffmode"] = diffmode_phase(dev, smi.splitlines()[0])
     t = lap("diffmode", t)
     robust_utils_phase(dev)
     t = lap("robust_utils", t)
+    tools_phase(smi.splitlines()[0], {path: runs[path]["kernels_per_step"]
+                                      for path in ("nominal", "snmpc")}, side_recs)
+    t = lap("tools", t)
     lap("whole script after the imports", t_start)
     all_paths = list(PATHS) + list(TUNING) + list(ENTRY) + list(SERVE)
     per_path = {path: runs[path]["launches"] for path in all_paths}

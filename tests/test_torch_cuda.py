@@ -2,17 +2,19 @@
 PyTorch version on the same CUDA float32 inputs, the dispatch rule's
 refusals, the launch counters, and a short closed loop of each ported
 controller (nominal, R2NMPC and WMPC over R2NMPC: K1-K5; SNMPC: K1, K3-K6).
-K7 and K8, which no path launches, are held on their own inputs. K4 is also
-held on its own, at ragged and the shipped shapes and with a non-finite
-factor; K1 at the SNMPC shape and at a ragged element count; K2 at ragged
-shapes (both kernel bodies), K6 from a carry dense in every column, K5 and
-the K7 solve with garbage above L's diagonal; the kernels' own launch-shape
-queries against the Python plans. The tuning loops' pieces: the planner on
-one lap per scenario against the CPU, one RL env step and one BO objective
-chunk against the CPU float64 run from the same state, each through K1-K5.
-One scenario (B = 1, main.py's closed loop): K1 and K4 at that shape, and
-5 steps of the entry module's run_main through K1-K5. The tire gradient
-through K1-K5 (their backward the plain versions' VJP) against the CPU.
+K7 and K8, which no path launches, are held on their own inputs (K8 also
+bitwise against K2, and at N = 64). K4 is also held on its own, at ragged
+and the shipped shapes and with a non-finite factor; K1 at the SNMPC shape
+and at a ragged element count; K2 at ragged shapes (both kernel bodies), K6
+from a carry dense in every column, K5 and the K7 solve with garbage above
+L's diagonal; the kernels' own launch-shape queries against the Python
+plans. The tuning loops' pieces: the planner on one lap per scenario
+against the CPU, one RL env step and one BO objective chunk against the CPU
+float64 run from the same state, each through K1-K5. One scenario (B = 1,
+main.py's closed loop): K1 and K4 at that shape, and 5 steps of the entry
+module's run_main through K1-K5. The tire gradient through K1-K5 (their
+backward the plain versions' VJP) against the CPU. Two tools: profile_step's
+per-stage kernel counts, and diag_precision --tf32 restoring the flags.
 
 Marked `cuda`; without a CUDA device every test skips. On a GPU machine:
 
@@ -301,15 +303,20 @@ def test_cholesky_plan_matches_the_kernel(dev):
     assert lib.cholesky_smem_bytes(0) == -1 and lib.cholesky_smem_bytes(MAX_N_CHOL + 1) == -1
 
 
-@pytest.mark.parametrize("B,N", [(3, 5), (128, 38)])
-def test_condense_mxu_kernel(dev, B, N):
-    """K8 against its plain version, small and at the nominal shapes; e
-    also against K2's e on the same inputs."""
-    rng = np.random.default_rng(7)
+def _k8_inputs(B, N, dev, seed=7):
+    rng = np.random.default_rng(seed)
     t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
     A = t(0.97 * np.eye(8) + rng.normal(0, 0.05, (B, N, 8, 8)))
     Bm, xi = t(rng.normal(0, 1, (B, N, 8, 2))), t(rng.normal(0, 0.1, (B, N, 8)))
-    d0 = t(rng.normal(0, 1, (B, 8)))
+    return A, Bm, xi, t(rng.normal(0, 1, (B, 8)))
+
+
+@pytest.mark.parametrize("B,N", [(3, 5), (128, 38), (2, 64)])
+def test_condense_mxu_kernel(dev, B, N):
+    """K8 against its plain version, small, at the nominal shapes and at
+    N = 64 (nz + 1 = 129 columns, five blocks a scenario); e also against
+    K2's e on the same inputs."""
+    A, Bm, xi, d0 = _k8_inputs(B, N, dev)
     build.reset_launches()
     e, G = condense_mxu(A, Bm, xi, d0)
     torch.cuda.synchronize()
@@ -321,17 +328,42 @@ def test_condense_mxu_kernel(dev, B, N):
     assert torch.equal(e[:, 0], d0) and torch.count_nonzero(G[:, 0]) == 0
 
 
-@pytest.mark.parametrize("nx,N", [(17, 4), (16, 300), (8, 600)])
+@pytest.mark.parametrize("B", [128, 1])
+def test_condense_mxu_equals_condense_bitwise(dev, B):
+    """K8 is K2's kernel writing one augmented tensor: assigning B_k to a
+    column that holds only +-0 equals K2's addition bit for bit, so both
+    outputs equal K2's exactly."""
+    args = _k8_inputs(B, 38, dev, seed=11)
+    e8, G8 = condense_mxu(*args)
+    e2, G2 = condense(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(e8, e2) and torch.equal(G8, G2)
+
+
+@pytest.mark.parametrize("nx,N", [(17, 4), (16, 300), (8, 700)])
 def test_condense_mxu_refuses_what_it_cannot_hold(dev, nx, N):
-    """K8 holds a column of at most 16 states in registers, at most 1024
-    augmented columns and its inputs in 227 KB of shared memory: beyond
-    that the wrapper raises and launches nothing."""
+    """K8 refuses what K2 refuses (condense_plan): more than 16 states (a
+    column in registers), inputs beyond 227 KB of shared memory; the wrapper
+    raises and launches nothing."""
     A = torch.zeros(2, N, nx, nx, device=dev)
     args = (A, torch.zeros(2, N, nx, 2, device=dev), torch.zeros(2, N, nx, device=dev),
             torch.zeros(2, nx, device=dev))
+    with pytest.raises(ValueError):
+        condense_plan(N, nx, 2, N * 2)
     build.reset_launches()
     with pytest.raises(ValueError):
         condense_mxu(*args)
+    assert build.LAUNCHES["condense_mxu"] == 0
+
+
+def test_condense_mxu_refuses_what_the_kernel_does_not_take(dev):
+    """float64 and a non-contiguous input: refused before any launch."""
+    A, Bm, xi, d0 = _k8_inputs(2, 5, dev)
+    build.reset_launches()
+    with pytest.raises(TypeError):
+        condense_mxu(A.double(), Bm.double(), xi.double(), d0.double())
+    with pytest.raises(ValueError):
+        condense_mxu(A.transpose(2, 3), Bm, xi, d0)
     assert build.LAUNCHES["condense_mxu"] == 0
 
 
@@ -620,3 +652,28 @@ def test_tire_gradient_through_the_kernels_matches_cpu(dev):
     refs = diffmode_references(diffmode_gradient("cpu", torch.float64)[0])
     gaps = {name: grad_gap(g32, r) for name, r in refs.items()}
     assert min(float(g.max()) for g in gaps.values()) <= TOL_GRAD, gaps
+
+
+def test_diag_precision_tf32_restores_the_flags(dev):
+    """diag_precision --tf32 turns TF32 on for its run only."""
+    from tum_control_tpu_torch.tools import diag_precision
+
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    rows = diag_precision.main(["--tf32", "--steps", "3", "--settle", "1"])
+    assert len(rows) == 5 and all(np.isfinite(r["run_max"]) for r in rows)
+    assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == flags
+
+
+def test_profile_step_counts_each_stage_on_the_card(dev):
+    """profile_step at B = 4 on the card: every stage's profiler window
+    holds device kernels; the QP stages launch K1-K5 (build_qp K1 and K2,
+    the IPM K3-K5), the planner none of them."""
+    from tum_control_tpu_torch.tools import profile_step
+
+    res = profile_step.main(["4", "--repeats", "2"])["nominal"]
+    for name, r in res.items():
+        assert r["kernels"] > 0 and r["device_ms"] > 0 and r["ms"] > 0, name
+    assert res["planner"]["launches"] == {}
+    assert set(res["build_qp"]["launches"]) == {"linearize", "condense"}
+    assert set(res["ipm+polish"]["launches"]) == {"cholesky", "ipm_iteration", "chol_solve"}
+    assert set(res["full step"]["launches"]) == set(NOMINAL_KERNELS)

@@ -21,7 +21,11 @@ slice of the node axis at the UPH. Two QP assemblies, as there:
     UPH x (n_samples + 1) + (N - UPH) elements per scenario (88 at the
     shipped N = 38, UPH = 5, 10 samples), the UPH head recurrence in plain
     torch, and K6 (ops/kernels/condense.py::condense_from) for the nominal
-    tail; the dense (N+1, 88, nz) Gamma is never formed;
+    tail; the dense (N+1, 88, nz) Gamma is never formed. The engine also
+    gets the JAX package's `lin_condense`, `con_jac` and `y_jac` hooks (the
+    dense Gamma from those pieces, the analytic constraint and output
+    Jacobians); build_qp takes precedence over them, and
+    tools/snmpc_dissect.py times them one by one;
   * dense (`structured=False`): the generic engine path over the 88-state
     stack (`dyn_jac`, condensing, forward-mode AD of the cost and
     constraints) — the oracle the structured path is tested against, on
@@ -199,6 +203,18 @@ class StochasticNMPC:
                 e_full, Gam_nom = e_head, G_head[:, :, 0]
             return e_full, Gam_nom, G_head, G_c[:, 1:]
 
+        def lin_condense(X, U, d0):
+            """The dense condensing (B, N+1, nx), (B, N+1, nx, nz) assembled
+            from the structured pieces: the samples' Gammas of the head
+            stages, then their frozen block at every later node."""
+            Bt = X.shape[0]
+            e_full, Gam_nom, G_head, G_frozen = lin_structured(X, U, d0)
+            H = G_head.shape[1]
+            G_smp = torch.cat([G_head[:, :, 1:],
+                               G_frozen[:, None].expand(Bt, N + 1 - H, ns, 8, nz)], dim=1)
+            G_full = torch.cat([Gam_nom[:, :, None], G_smp], dim=2)
+            return e_full.reshape(Bt, N + 1, nx), G_full.reshape(Bt, N + 1, nx, nz)
+
         self.dyn_step = dyn_step
         self._lin_structured = lin_structured
 
@@ -325,6 +341,44 @@ class StochasticNMPC:
             h = torch.cat([h_cc[..., :c_split, :], h_all[..., c_split:, 0, :]], dim=-2)
             return torch.cat([h, xs[..., 0, 6:7]], dim=-1)
 
+        def con_jac(x):
+            """con_stage's value and its analytic Jacobian over the stacked
+            state, x (..., N+1, nx) -> ((..., N+1, nh + 1), (..., N+1, nh + 1,
+            nx)): below the UPH d h_cc / d x_j is sample j's weight times its
+            own h-Jacobian (sample_weights), beyond it the nominal copy's
+            h-Jacobian; the delta_f row is the nominal copy's unit row."""
+            xs = x.unflatten(-1, (ns1, 8))
+            h_all, dh_all = h_jac(xs)                  # (..., N+1, ns1, nh), (..., nh, 8)
+            coeff, sd, h_cc = surrogate(h_all[..., 1:, :])
+            J_cc = torch.cat([torch.zeros_like(dh_all[..., :1, :, :]),
+                              sample_weights(coeff, sd)[..., None] * dh_all[..., 1:, :, :]],
+                             dim=-3)
+            J_nom = torch.cat([dh_all[..., :1, :, :], torch.zeros_like(dh_all[..., 1:, :, :])],
+                              dim=-3)
+            C_h = torch.cat([h_cc[..., :c_split, :], h_all[..., c_split:, 0, :]], dim=-2)
+            J_h = torch.cat([J_cc[..., :c_split, :, :, :], J_nom[..., c_split:, :, :, :]], dim=-4)
+            J_df = torch.zeros(x.shape[:-1] + (1, nx), dtype=x.dtype, device=x.device)
+            J_df[..., 0, 6] = 1.0
+            return (torch.cat([C_h, xs[..., 0, 6:7]], dim=-1),
+                    torch.cat([J_h.transpose(-3, -2).flatten(-2), J_df], dim=-2))
+
+        def y_jac(x, u):
+            """y_stage's value and its analytic Jacobians, x (..., N, nx),
+            u (..., N, nu) -> Y (..., N, 4 + nu), Jx (..., N, 4 + nu, nx),
+            Ju (..., N, 4 + nu, nu): y reads the nominal copy's position,
+            yaw and speed, and u."""
+            vel_abs = torch.sqrt(x[..., 3] ** 2 + x[..., 4] ** 2 + 1e-30)
+            Y = torch.cat([x[..., 0:2], wrap_2pi(x[..., 2:3]), vel_abs[..., None], u], dim=-1)
+            Jx = torch.zeros(x.shape[:-1] + (4 + nu, nx), dtype=x.dtype, device=x.device)
+            for i in range(3):
+                Jx[..., i, i] = 1.0
+            Jx[..., 3, 3] = x[..., 3] / vel_abs
+            Jx[..., 3, 4] = x[..., 4] / vel_abs
+            Ju = torch.zeros(x.shape[:-1] + (4 + nu, nu), dtype=x.dtype, device=x.device)
+            Ju[..., 4, 0] = 1.0
+            Ju[..., 5, 1] = 1.0
+            return Y, Jx, Ju
+
         W = 0.01 * np.concatenate([np.diag(mpc_cfg.Q()), np.diag(mpc_cfg.R())])
         We = 0.01 * np.diag(mpc_cfg.Q())
         lh, uh = acc_bounds(shape)
@@ -342,7 +396,8 @@ class StochasticNMPC:
         u_z1[0, :] = 0.0
         u_z2[0, :] = HARD_Z2
 
-        hooks = dict(build_qp=build_qp_structured, expand_dx=expand_dx) if structured else {}
+        hooks = dict(build_qp=build_qp_structured, expand_dx=expand_dx, lin_condense=lin_condense,
+                     con_jac=con_jac, y_jac=y_jac) if structured else {}
         self.engine = RTIEngine(
             funcs=OCPFunctions(y_stage=y_stage, y_term=y_term, con_stage=con_stage,
                                dyn_jac=dyn_jac, **hooks),

@@ -41,7 +41,7 @@
 // shuffle exchange (640 warps: two share a scheduler on some SMs), two
 // columns per lane sharing A_k's reads. No column is skipped: K6's carry
 // may be dense in every column. FROM selects the initial carry (loaded for
-// K6, (d0, 0) for K2), col0 is 0 for K2. cond_layout / condense_launch_plan
+// K6, (d0, 0) for K2 and K8), col0 is 0 for K2. cond_layout / condense_launch_plan
 // give the launch shape (ops/kernels/condense.py::condense_plan computes
 // the same); shared memory above the default 48 KB is opted in only where a
 // shape needs it.
@@ -51,15 +51,16 @@
 // recurrence on an augmented carry G = [Gam | e] of nx x (nz+1), stage 0 =
 // [0 | d0], then per stage G <- A_k G, the columns k nu .. (k+1) nu of G
 // *assigned* B_k, and xi_k added to the e column. It writes one
-// (N+1, nx, nz+1) tensor per scenario. The TPU kernel packs 128/nx scenarios
+// (N+1, nx, nz+1) tensor per scenario. K8 is K2's kernel with another store
+// layout (ldg, lde: the row strides of Gam and e; K8's e is column nz of the
+// same rows): assignment and K2's addition agree bit for bit here, since a
+// column of Gam holds only +-0 before its own stage (the carry starts at
+// zero) and A_k (+-0) + b = b for finite inputs, so K8's outputs equal K2's
+// bitwise. Bound by bytes, as K2. The TPU kernel packs 128/nx scenarios
 // block-diagonally into one 128x128 MXU product per stage, wasting 15/16 of
 // the work; that packing is not carried over, and no tensor-core mode is
-// used (TF32 per-stage products cost ~2e-2 relative error in this
-// recurrence). Design: one block per scenario, A, B, xi in shared memory,
-// one thread per augmented column holding that column (nx <= 16 values) in
-// registers, so a stage needs no barrier; each stage's rows go to device
-// memory coalesced across the threads. Bound by bytes too: (N+1) nx (nz+1)
-// floats written per scenario.
+// used: the recurrence is bound by bytes, not operations, and TF32
+// per-stage products cost ~2e-2 relative error in it.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -69,7 +70,7 @@ constexpr int COND_THREADS = 32;      // columns (threads) per block
 constexpr int COND_FAST_NX = 8;       // the nx of the unrolled body
 constexpr size_t SMEM_MAX = 232448;   // shared memory a block may have on Hopper
 
-// K2 / K6 launch shape at (N, nx, nu, nz): blocks per scenario (nz + 1
+// K2 / K6 / K8 launch shape at (N, nx, nu, nz): blocks per scenario (nz + 1
 // columns), and the shared-memory offsets of B and xi after A (floats,
 // multiples of 4)
 struct CondLayout {
@@ -133,7 +134,8 @@ __global__ void __launch_bounds__(COND_THREADS)
     condense_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
                     const float* __restrict__ xi, const float* __restrict__ e0,
                     const float* __restrict__ G0, float* __restrict__ e_out,
-                    float* __restrict__ gam_out, int N, int nx_, int nu, int nz, int col0) {
+                    float* __restrict__ gam_out, int N, int nx_, int nu, int nz, int col0,
+                    int ldg, int lde) {
   constexpr int R = NX > 0 ? NX : COND_MAX_NX;   // registers per column
   constexpr int NQ = NX > 0 ? NX * NX / 4 : 1;   // float4s of one A_k
   constexpr int NV = NX > 0 ? NX / 4 : 1;        // float4s of one xi_k
@@ -168,12 +170,12 @@ __global__ void __launch_bounds__(COND_THREADS)
     }
     g[i] = v;
   }
-  // stage k of the column: Gam's column z (rows nz apart, the warp's 32
-  // columns side by side) or e (rows adjacent); one predicated store per
+  // stage k of the column: Gam's column z (rows ldg apart, the warp's 32
+  // columns side by side) or e (rows lde apart); one predicated store per
   // row, the same path in every lane
-  const int stride = is_e ? 1 : nz;
-  float* col = is_e ? e_out + (size_t)b * (N + 1) * nx
-                    : gam_out + (size_t)b * (N + 1) * nx * nz + (is_g ? z : 0);
+  const int stride = is_e ? lde : ldg;
+  float* col = is_e ? e_out + (size_t)b * (N + 1) * nx * lde
+                    : gam_out + (size_t)b * (N + 1) * nx * ldg + (is_g ? z : 0);
   auto store = [&](int k) {
     float* p = col + (size_t)k * nx * stride;
 #pragma unroll
@@ -233,19 +235,19 @@ template <int NX, bool FROM>
 static int launch_nx(const CondLayout& s, size_t smem, const float* A, const float* Bm,
                      const float* xi, const float* e0, const float* G0, float* e_out,
                      float* gam_out, int batch, int N, int nx, int nu, int nz, int col0,
-                     void* stream) {
+                     int ldg, int lde, void* stream) {
   const cudaError_t err = reserve_smem((const void*)condense_kernel<NX, FROM>, smem);
   if (err != cudaSuccess) return (int)err;
   condense_kernel<NX, FROM>
       <<<batch * s.blocks, COND_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-          A, Bm, xi, e0, G0, e_out, gam_out, N, nx, nu, nz, col0);
+          A, Bm, xi, e0, G0, e_out, gam_out, N, nx, nu, nz, col0, ldg, lde);
   return (int)cudaGetLastError();
 }
 
 template <bool FROM>
 static int launch(const float* A, const float* Bm, const float* xi, const float* e0,
                   const float* G0, float* e_out, float* gam_out, int batch, int N, int nx,
-                  int nu, int nz, int col0, void* stream) {
+                  int nu, int nz, int col0, int ldg, int lde, void* stream) {
   if (batch <= 0) return 0;
   if (!cond_supported(N, nx, nu, nz)) return (int)cudaErrorInvalidValue;
   const CondLayout s = cond_layout(N, nx, nu, nz);
@@ -253,9 +255,9 @@ static int launch(const float* A, const float* Bm, const float* xi, const float*
   const size_t smem = sizeof(float) * (size_t)s.floats;
   return nx == COND_FAST_NX ? launch_nx<COND_FAST_NX, FROM>(s, smem, A, Bm, xi, e0, G0, e_out,
                                                             gam_out, batch, N, nx, nu, nz,
-                                                            col0, stream)
+                                                            col0, ldg, lde, stream)
                             : launch_nx<0, FROM>(s, smem, A, Bm, xi, e0, G0, e_out, gam_out,
-                                                 batch, N, nx, nu, nz, col0, stream);
+                                                 batch, N, nx, nu, nz, col0, ldg, lde, stream);
 }
 
 // K2: (e_0, Gam_0) = (d0, 0), nz = N nu.
@@ -263,7 +265,7 @@ extern "C" int condense_f32(const float* A, const float* Bm, const float* xi, co
                             float* e_out, float* gam_out, int batch, int N, int nx, int nu,
                             void* stream) {
   return launch<false>(A, Bm, xi, d0, nullptr, e_out, gam_out, batch, N, nx, nu, N * nu, 0,
-                       stream);
+                       N * nu, 1, stream);
 }
 
 // K6: (e_0, Gam_0) = (e0, G0) with G0 (batch, nx, nz), stage t's B in the
@@ -272,10 +274,11 @@ extern "C" int condense_from_f32(const float* A, const float* Bm, const float* x
                                  const float* e0, const float* G0, float* e_out, float* gam_out,
                                  int batch, int N2, int nx, int nu, int nz, int col0,
                                  void* stream) {
-  return launch<true>(A, Bm, xi, e0, G0, e_out, gam_out, batch, N2, nx, nu, nz, col0, stream);
+  return launch<true>(A, Bm, xi, e0, G0, e_out, gam_out, batch, N2, nx, nu, nz, col0, nz, 1,
+                      stream);
 }
 
-// K2 / K6's launch shape at (N, nx, nu, nz), as
+// K2 / K6 / K8's launch shape at (N, nx, nu, nz), as
 // ops/kernels/condense.py::condense_plan gives it: plan = {threads per block,
 // blocks per scenario, nx of the unrolled body (8) or 0 (the generic one),
 // shared bytes}; returns 0, or -1 (plan untouched) where the kernel refuses
@@ -289,69 +292,12 @@ extern "C" int condense_launch_plan(int N, int nx, int nu, int nz, int* plan) {
   return 0;
 }
 
-__global__ void condense_aug_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
-                                    const float* __restrict__ xi, const float* __restrict__ d0,
-                                    float* __restrict__ out, int N, int nx, int nu) {
-  extern __shared__ float sm[];
-  const int b = blockIdx.x;
-  const int z = threadIdx.x, bs = blockDim.x;
-  const int nz = N * nu, w = nz + 1;
-  float* sA = sm;                    // N nx nx
-  float* sB = sA + N * nx * nx;      // N nx nu
-  float* sxi = sB + N * nx * nu;     // N nx
-  const float* Ab = A + (long)b * N * nx * nx;
-  const float* Bb = Bm + (long)b * N * nx * nu;
-  const float* xib = xi + (long)b * N * nx;
-  for (int i = z; i < N * nx * nx; i += bs) sA[i] = Ab[i];
-  for (int i = z; i < N * nx * nu; i += bs) sB[i] = Bb[i];
-  for (int i = z; i < N * nx; i += bs) sxi[i] = xib[i];
-  __syncthreads();
-  if (z >= w) return;
-
-  // thread z owns column z of the carry: Gam's columns, then e at z = nz
-  float g[COND_MAX_NX];
-#pragma unroll
-  for (int i = 0; i < COND_MAX_NX; ++i) g[i] = (i < nx && z == nz) ? d0[(long)b * nx + i] : 0.0f;
-  float* ob = out + (long)b * (N + 1) * nx * w;
-#pragma unroll
-  for (int i = 0; i < COND_MAX_NX; ++i)
-    if (i < nx) ob[i * w + z] = g[i];
-  for (int k = 0; k < N; ++k) {
-    const float* Ak = sA + k * nx * nx;
-    float gn[COND_MAX_NX];
-#pragma unroll
-    for (int i = 0; i < COND_MAX_NX; ++i) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int m = 0; m < COND_MAX_NX; ++m)
-        if (i < nx && m < nx) acc += Ak[i * nx + m] * g[m];
-      gn[i] = acc;
-    }
-    const int q = z - k * nu;
-    float* o = ob + (long)(k + 1) * nx * w;
-#pragma unroll
-    for (int i = 0; i < COND_MAX_NX; ++i) {
-      if (i < nx) {
-        if (q >= 0 && q < nu) gn[i] = sB[(k * nx + i) * nu + q];   // assigned, not added
-        if (z == nz) gn[i] += sxi[k * nx + i];
-        g[i] = gn[i];
-        o[i * w + z] = g[i];
-      }
-    }
-  }
-}
-
-// K8: out (batch, N+1, nx, nz+1) = the augmented carries [Gam_k | e_k]. The
-// caller ensures nx <= 16, N nu + 1 <= 1024 and that the shared memory fits.
+// K8: out (batch, N+1, nx, nz+1) = the augmented carries [Gam_k | e_k], nz =
+// N nu: K2's kernel, Gam's rows and e's at the row stride nz + 1 of one
+// tensor, e in its last column.
 extern "C" int condense_aug_f32(const float* A, const float* Bm, const float* xi, const float* d0,
                                 float* out, int batch, int N, int nx, int nu, void* stream) {
-  if (batch <= 0) return 0;
-  if (nx > COND_MAX_NX || N * nu + 1 > 1024) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)N * nx * nx + (size_t)N * nx * nu + (size_t)N * nx);
-  const cudaError_t err = reserve_smem((const void*)condense_aug_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = ((N * nu + 1 + 31) / 32) * 32;
-  condense_aug_kernel<<<batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      A, Bm, xi, d0, out, N, nx, nu);
-  return (int)cudaGetLastError();
+  const int nz = N * nu;
+  return launch<false>(A, Bm, xi, d0, nullptr, out + nz, out, batch, N, nx, nu, nz, 0, nz + 1,
+                       nz + 1, stream);
 }

@@ -35,9 +35,10 @@ K2 recurrence on an augmented carry [Gam | e] of nx x (nz+1), stage k's B
 
   * `condense_mxu_ref`: the plain version of those semantics, batched;
   * `condense_mxu`: the wrapper; CPU -> `condense_mxu_ref`, CUDA float32 ->
-    csrc/condense.cu (`condense_aug_f32`, one (B, N+1, nx, nz+1) output),
-    anything else raises, as does a shape the kernel cannot hold. Both
-    return (e, Gam) = (out[..., nz], out[..., :nz]), as the JAX function.
+    csrc/condense.cu (`condense_aug_f32`: K2's kernel writing one
+    (B, N+1, nx, nz+1) output, bitwise equal to K2's), anything else
+    raises, as does a shape outside `condense_plan`. Both return
+    (e, Gam) = (out[..., nz], out[..., :nz]), as the JAX function.
 """
 from __future__ import annotations
 
@@ -55,7 +56,7 @@ SMEM_BYTES = 232448   # shared memory a block may use on Hopper
 
 
 class CondensePlan(NamedTuple):
-    """Launch shape of K2 / K6 at (N, nx, nu, nz) (csrc/condense.cu computes
+    """Launch shape of K2 / K6 / K8 at (N, nx, nu, nz) (csrc/condense.cu computes
     the same, `cond_layout`): `threads` per block, one per column of Gam or
     e; `blocks` per scenario for its nz + 1 columns; `nx_template` the nx of
     the unrolled kernel body (0: the generic body, any nx <= 16);
@@ -68,7 +69,7 @@ class CondensePlan(NamedTuple):
 
 
 def condense_plan(N: int, nx: int, nu: int, nz: int) -> CondensePlan:
-    """K2 / K6's launch shape; raises for N < 1, nx outside 1..MAX_NX, nu < 1,
+    """K2 / K6 / K8's launch shape; raises for N < 1, nx outside 1..MAX_NX, nu < 1,
     nz < 0, or A, B, xi beyond a block's shared memory."""
     if N < 1 or not 1 <= nx <= MAX_NX or nu < 1 or nz < 0:
         raise ValueError(f"condense: K2 / K6 take N >= 1, 1 <= nx <= {MAX_NX} (a column in "
@@ -186,11 +187,7 @@ def condense_mxu_cuda(A, B, xi, d0):
         raise ValueError("condense_mxu: inconsistent shapes "
                          f"{tuple(A.shape)} {tuple(B.shape)} {tuple(xi.shape)} {tuple(d0.shape)}")
     nz = N * nu
-    smem = 4 * N * nx * (nx + nu + 1)
-    if nx > MAX_NX or nz + 1 > 1024 or smem > SMEM_BYTES:
-        raise ValueError(f"condense_mxu: K8 takes nx <= {MAX_NX}, N nu + 1 <= 1024 threads "
-                         f"and {SMEM_BYTES} bytes of shared memory; got nx = {nx}, "
-                         f"N nu = {nz}, {smem} bytes")
+    condense_plan(N, nx, nu, nz)
     out = torch.empty((Bt, N + 1, nx, nz + 1), dtype=A.dtype, device=A.device)
     fn = build.library("condense").condense_aug_f32
     with torch.cuda.device(A.device):

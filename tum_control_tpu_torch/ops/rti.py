@@ -18,10 +18,11 @@ One `solve_full` per control step, for B scenarios at once:
      KKT residual exceeds `kkt_fail_rel` (acados status 3), per scenario.
 
 A controller may replace steps 1-3 by `build_qp` + `expand_dx` (SNMPC's
-structured path: K1 + K6). A solve may override the engine's weights, bounds
-and slack penalties per scenario through `QPMods` (WMPC's weight swaps,
-R2NMPC's bound tightening). The JAX package's `lin_condense`, `y_jac` and
-`con_jac` hooks are left out: no path of the port would take them.
+structured path: K1 + K6), or parts of them by `lin_condense` (steps 1-2),
+`y_jac` (the cost's output Jacobians) and `con_jac` (the constraint rows'
+Jacobian); build_qp takes precedence over the three. A solve may override
+the engine's weights, bounds and slack penalties per scenario through
+`QPMods` (WMPC's weight swaps, R2NMPC's bound tightening).
 """
 from __future__ import annotations
 
@@ -55,6 +56,14 @@ class OCPFunctions(NamedTuple):
         reference-dependent cost (the EXTERNAL cost's ego-frame lon/lat
         deviations), in place of y_stage(x, u) - yref
     resid_term: (x (..., nx), yref_e (..., ny_e)) -> (..., ny_e)
+    lin_condense: (X (B, N+1, nx), U (B, N, nu), d0 (B, nx)) -> (e (B, N+1, nx),
+        Gam (B, N+1, nx, nz)), in place of linearizing and condensing (A_lin
+        is then zeros)
+    y_jac    : (x, u) -> (Y (..., N, ny), Jx (..., N, ny, nx), Ju (..., N, ny, nu)),
+        y_stage's value and Jacobians, in place of forward-mode AD (after
+        y_select, before it when the cost is EXTERNAL)
+    con_jac  : (x (..., N+1, nx)) -> (C (..., N+1, nc), Jc (..., N+1, nc, nx)),
+        con_stage's value and Jacobian
     build_qp : (X, U, x0, yref, yref_e, merged) -> (CondensedQP, aux), the
         whole QP assembly; `merged` is `RTIEngine._merged(mods)`, the
         (W, We, con_lb, con_ub, con_z1, con_z2, u_lb, u_ub, u_z1, u_z2) of
@@ -71,6 +80,9 @@ class OCPFunctions(NamedTuple):
     y_select_term: tuple = None
     resid_stage: Callable = None
     resid_term: Callable = None
+    lin_condense: Callable = None
+    y_jac: Callable = None
+    con_jac: Callable = None
     build_qp: Callable = None
     expand_dx: Callable = None
 
@@ -206,8 +218,12 @@ class RTIEngine:
             return qp, aux, None, self._zero_A(x0)
         W, We, con_lb, con_ub, con_z1, con_z2, u_lb, u_ub, u_z1, u_z2 = merged
         d0 = x0 - state.X[:, 0]
-        A, Bm, xi = self._linearize(state)
-        e, Gam = condense(A, Bm, xi.contiguous(), d0.contiguous())
+        if f.lin_condense is not None:
+            e, Gam = f.lin_condense(state.X, state.U, d0)
+            A = self._zero_A(x0)
+        else:
+            A, Bm, xi = self._linearize(state)
+            e, Gam = condense(A, Bm, xi.contiguous(), d0.contiguous())
 
         if f.y_select is not None and f.resid_stage is None:
             # --- Gauss-Newton cost, selection-structured: y = [x[sel], u] ---
@@ -232,6 +248,14 @@ class RTIEngine:
                 + (Wu.unsqueeze(-2) * r_u).reshape(B, -1)
                 + mtv(Me, We * re0)
             )
+        elif f.y_jac is not None and f.resid_stage is None:
+            # --- Gauss-Newton cost from the analytic output Jacobians ---
+            Y, Jyx, Jyu = f.y_jac(state.X[:, :-1], state.U)
+            r0 = Y - yref + torch.matmul(Jyx, e[:, :N, :, None])[..., 0]
+            M = torch.matmul(Jyx, Gam[:, :N]) + torch.matmul(Jyu, self.E)
+            re, Jre = jacobian_fwd(lambda x: f.y_term(x) - yref_e, state.X[:, N])
+            re0 = re + torch.matmul(Jre, e[:, N, :, None])[..., 0]
+            H0, g0 = self._gn_assemble(r0, M, re0, torch.matmul(Jre, Gam[:, N]), W, We)
         else:
             # --- Gauss-Newton cost from the residual Jacobians: the
             # EXTERNAL cost's resid_stage / resid_term, else y - yref ---
@@ -256,7 +280,10 @@ class RTIEngine:
             H0 = H0 + self.lm_reg * torch.eye(nz, dtype=H0.dtype, device=H0.device)
 
         # --- constraint rows: value + Jacobian of con_stage at every node ---
-        C, Jc = jacobian_fwd(f.con_stage, state.X)                    # (B,N+1,nc), (B,N+1,nc,nx)
+        if f.con_jac is not None:
+            C, Jc = f.con_jac(state.X)
+        else:
+            C, Jc = jacobian_fwd(f.con_stage, state.X)                # (B,N+1,nc), (B,N+1,nc,nx)
         c0_c = C + torch.sum(Jc * e[:, :, None, :], dim=-1)
         G = torch.matmul(Jc, Gam).reshape(B, -1, nz)
         c0 = torch.cat([c0_c.reshape(B, -1), state.U.reshape(B, -1)], dim=1)
