@@ -108,10 +108,27 @@ Phases (any failure raises and the script exits non-zero):
      diag_precision's default and --tf32 runs side by side, and
      profile_step's device kernels per stage beside the loops' kernels per
      step;
- 11. prints the seconds each phase took, one {"kernels": [...]} line
-     (launches per path, and per closed-loop step on the entry, serving,
-     sharding and differentiable paths; K7 and K8, which no path launches,
-     with 0 and "path": null) and, last, the device line.
+ 11. `eval`: the evaluation tools (EVAL: one_lap, quality_exp at
+     sqp_iters = 2, multitrack_eval, wmpc_eval, rl_protocol_eval,
+     catalog_noise_validation with every catalog as one batch of 234 / 315
+     / 252 scenarios, the SB3 converter, acc24_figures' propagation) at
+     full width and cut depth in a child process (`--eval-child`), after
+     phase 6 and before any profiler session: each must exit normally,
+     return and print finite numbers, print what it returned (its
+     statistics recomputed from the returned logs or arrays, solver-ok
+     >= 0.99), launch its path's kernels and no other; the propagation
+     within TOL_PROPAGATION of the CPU's float64 one. The sqp_iters = 2 and
+     the catalog paths are also held as the loops are in phase 8
+     (EVAL_HOLD, from the card's carry, the catalog's subset fed the card's
+     noise). Each loop path (phase 3, after its timed window; WMPC for one
+     policy period) and one served cycle of the pipelined dispatcher
+     (phase 6) run under torch.cuda.set_sync_debug_mode("error"): no step
+     may make the host wait for the card;
+ 12. prints the seconds each phase took, one {"kernels": [...]} line
+     (launches per path, the evaluation tools' as "eval/<tool>", and per
+     closed-loop step on the entry, serving, sharding and differentiable
+     paths; K7 and K8, which no path launches, with 0 and "path": null)
+     and, last, the device line.
 
     python3 chip_smoke.py --kernels-only   # phases 1, 2 and the kernels' profiles
 
@@ -198,6 +215,10 @@ FULL_LOGS = {"MPC_SimX": (1, 8), "CiLX": (1, 7), "simU": (0, 2), "simREF": (0, 4
              "sim_disturbance_state_estimation": (0, 7), "a_lat": (1,), "dev_lat": (0,),
              "dev_long": (0,), "dev_vel": (0,), "dev_yaw": (0,), "t": (0,),
              "DisturbedX": (1, 7)}
+# the untraced closed-loop step (ms) of PERF.md section 5, before the
+# estimator's per-step host sync was removed (H100 80GB HBM3, 700 W),
+# printed beside this run's
+EARLIER_NOMINAL_STEP_MS = 51.357
 # the kernels each path must launch; every other counter must stay 0
 NOMINAL_KERNELS = ("linearize", "condense", "cholesky", "chol_solve", "ipm_iteration")
 PATH_KERNELS = {
@@ -300,8 +321,47 @@ TOOLS_SIDE_NICE = 10
 TOOLS_SIDE = [[("diag_precision", ["--tf32", "--steps", "20", "--settle", "10"])],
               [("dump_qps", ["1", "--out", os.path.join("build", "chip_smoke",
                                                           "qp_anchor_torch.npz")])]]
+# phase 11, the evaluation tools (tum_control_tpu_torch/tools and scripts)
+# on the card, at full width (N = 38; the catalogs at their full batches) and
+# cut depth, in one child process (`--eval-child`) after the serving and
+# sharding phases, before any profiler session: one_lap (the SNMPC, 1 s),
+# quality_exp at K = 2 (1 s of its 100 s), multitrack_eval (0.5 s of 100),
+# wmpc_eval (1 s of 40, LVMS), rl_protocol_eval (0.5 s of 120, two of its
+# four models), catalog_noise_validation (1 s of 40, three seeds, every
+# catalog as one batch), the SB3 converter on a checkpoint written from
+# new_BO_F's weights, and the uncertainty propagation of acc24_figures (its
+# figures need matplotlib, which the card's machine may lack)
+EVAL_OUT = os.path.join("build", "chip_smoke")
+EVAL = [
+    ("one_lap", ["monteblanco", "snmpc", "1"]),
+    ("quality_exp", ["2", "--T", "1"]),
+    ("multitrack_eval", ["0.5"]),
+    ("wmpc_eval", [WMPC_MODEL, "1", "lvms"]),
+    ("rl_protocol_eval", ["0.5", WMPC_MODEL, "data/wmpc_models/jax_ppo_r2"]),
+    ("catalog_noise_validation", ["--T", "1", "--seeds", "3", "--out",
+                                  os.path.join(EVAL_OUT, "catalog_noise_torch.json")]),
+    ("convert_sb3_checkpoint", [os.path.join(EVAL_OUT, "sb3_src"),
+                                os.path.join(EVAL_OUT, "sb3_out")]),
+    ("acc24_figures", []),
+]
+# each catalog's scenarios: sets x 3 tracks x 3 seeds, one batch
+CATALOG_SCENARIOS = {"data/F.csv": 234, "data/F_jax_r4.csv": 315,
+                     "data/F_jax_r4_lowrisk.csv": 252}
+# the card's float32 propagation of acc24_figures against the CPU's float64,
+# max |difference| over max |samples| (14 plain RK4 steps of 11 copies)
+TOL_PROPAGATION = 1e-5
+# the two evaluation paths that no earlier chip run held, re-solved on the
+# CPU from the card's carry (cpu_phase): sqp_iters = 2 (B scenarios spread
+# along the Monteblanco lap, `settle` steps on the card, `n` re-solved) and
+# the catalog's (F_jax_r4.csv's 315 scenarios on their laps, under their
+# weights and their seed's noise, `settle` steps on the card, then `subset`
+# of them re-solved `n` steps, fed the card's noise)
+EVAL_HOLD = {"sqp2": dict(B=16, settle=10, n=10),
+             "catalog": dict(catalog="data/F_jax_r4.csv", settle=10, n=5, subset=16)}
+EVAL_TRACKS = ("monteblanco", "modena", "lvms")
+EVAL_CPU = tuple(EVAL_HOLD)
 # what a tool returns that is no headline number (carries, outputs, QPs)
-TOOL_BULK = {"carry", "out", "qps", "w_ipm", "w_scipy"}
+TOOL_BULK = {"carry", "out", "qps", "w_ipm", "w_scipy", "log", "noise"}
 NONFINITE = re.compile(r"\b(nan|inf)\b", re.IGNORECASE)
 
 # tolerance of each kernel against its plain version on the same inputs, held
@@ -1289,7 +1349,14 @@ def loop_phase(dev, path):
     say(f"[loop/{path}] B={B} settle {settle} steps {t1 - t0:.3f} s, timed {steps} steps "
         f"{t2 - t1:.3f} s: {sps:.1f} solves/s, {(t2 - t1) / steps * 1e3:.3f} ms/step")
     say(f"[loop/{path}] solver ok fraction {ok:.5f}; |lat_dev| p50 {p50:.4f} m, p99 {p99:.4f} m")
+    if path == "nominal":
+        say(f"[loop/{path}] untraced step {(t2 - t1) / steps * 1e3:.3f} ms (with the "
+            f"estimator's host sync, PERF.md section 5: {EARLIER_NOMINAL_STEP_MS} ms)")
     check(ok >= 0.99, f"{path}: solver ok fraction {ok} < 0.99")
+    # after the timed window: steps that may not synchronize with the host
+    # (WMPC: one policy period, so that an update falls inside)
+    n_sync = getattr(sim.controller, "period", 1)
+    without_sync(lambda: sim.run_from(carry, n_sync), f"loop/{path}", n_sync)
     act = log.wmpc_action
     if PATH_CONFIG[path].get("enable_WMPC"):
         check(bool((act >= 0).all()), f"{path}: a WMPC step logged no action")
@@ -1301,6 +1368,22 @@ def loop_phase(dev, path):
     else:
         check(bool((act == -1).all()), f"{path}: actions logged without WMPC")
     return dict(launches=launches, sim=sim, carry0=carry0, carry=carry, step_s=(t2 - t1) / steps)
+
+
+def without_sync(fn, tag, n_steps):
+    """fn() under torch.cuda.set_sync_debug_mode("error"), where every
+    operation that makes the host wait for the card raises (a tensor made
+    from host data, a copy to the host, .item(), a stream synchronize).
+    Returns fn's result."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    say(f"[sync/{tag}] {n_steps} step(s) under sync debug mode 'error': no host sync")
+    return out
 
 
 def cpu_phase(path, sim, carry, n, sim_cfg, mpc_cfg, inputs=None):
@@ -1702,6 +1785,19 @@ def serve_phase(dev, smi):
             f"{gap.tolist()} of max |u| {scale.tolist()} (tol {TOL_SERVE:.0e})")
         check(bool((gap <= TOL_SERVE * scale).all()),
               f"serve/{mode}: controls {gap} from run_from's")
+
+    # one served cycle of the pipelined dispatcher (the step, its packed
+    # vector copied into pinned memory, an event behind the copy) may not
+    # make the host wait for the card
+    carry = sim.init_carry(x0m[None], x0s[None], key=0)
+    zeros = torch.zeros_like(carry.x_sim)
+    rows = torch.empty((2, deploy_rt.PACKED), dtype=torch.float32, pin_memory=True)
+    carry, ev = deploy_rt.dispatch_step(sim, carry, zeros, rows[0])
+    ev.synchronize()
+    _, ev = without_sync(lambda: deploy_rt.dispatch_step(sim, carry, zeros, rows[1]), "serve", 1)
+    ev.synchronize()
+    check(bool(torch.isfinite(rows).all()) and float(rows[1, 6]) == 0.0,
+          f"serve: the dispatched cycle's packed row {rows[1].tolist()}")
     return dict(launches=launches, steps=2 * (SERVE_CYCLES + 1), results=res)
 
 
@@ -1907,11 +2003,16 @@ def robust_utils_phase(dev):
 
 def tool_kernels(name, argv):
     """The kernels a tool's run must launch (every other counter stays 0):
-    snmpc_dissect assembles QPs and solves none (K1, K6), a run on the SNMPC
-    launches the snmpc path's, on the nominal NMPC (named, or by default)
-    the nominal path's."""
+    snmpc_dissect assembles QPs and solves none (K1, K6), the SB3 converter
+    and the acc24 propagation none, multitrack_eval the nominal and the
+    snmpc paths', a run on the SNMPC the snmpc path's, on the nominal NMPC or
+    the R2NMPC (named, or by default) the nominal path's."""
     if name == "snmpc_dissect":
         return ("linearize", "condense_from")
+    if name in ("convert_sb3_checkpoint", "acc24_figures"):
+        return ()
+    if name == "multitrack_eval":
+        return tuple(set(PATH_KERNELS["nominal"]) | set(PATH_KERNELS["snmpc"]))
     paths = [p for p in ("nominal", "snmpc") if p in argv] or ["nominal"]
     return tuple({k for p in paths for k in PATH_KERNELS[p]})
 
@@ -1962,16 +2063,16 @@ def tools_child(runs, nice):
     return 0
 
 
-def start_tool_children(groups, nice=0):
+def start_tool_children(groups, nice=0, mode="--tools-child"):
     """Starts each group of (tool, argv) in a child process of its own
-    (`--tools-child`) at niceness `nice`, all at once; returns [(process,
-    log file)]."""
+    (`mode`: --tools-child, or --eval-child for EVAL) at niceness `nice`,
+    all at once; returns [(process, log file)]."""
     os.makedirs(OUT_DIR, exist_ok=True)
     procs = []
     try:
         for i, runs in enumerate(groups):
             log = open(os.path.join(OUT_DIR, f"tools_child_{runs[0][0]}_{i}.log"), "w+")
-            cmd = [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--tools-child",
+            cmd = [sys.executable, os.path.join(REPO, "chip_smoke.py"), mode,
                    json.dumps(runs), str(nice)]
             procs.append((subprocess.Popen(cmd, cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
                                            text=True, env=dict(os.environ, OMP_NUM_THREADS="1")),
@@ -2052,6 +2153,268 @@ def tools_phase(smi, loop_kernels, side_recs):
     return recs
 
 
+def make_sb3_checkpoint(src_root):
+    """SRC/new_BO_F/best_model/best_model.zip as stable-baselines3 writes it
+    (policy.pth, a torch state dict under SB3's dotted names), holding the
+    shipped new_BO_F weights, and its rl_config.yaml; for the converter."""
+    import io
+    import shutil
+    import zipfile
+
+    model = os.path.join(REPO, WMPC_MODEL)
+    src = os.path.join(src_root, "new_BO_F")
+    shutil.rmtree(src_root, ignore_errors=True)
+    os.makedirs(os.path.join(src, "best_model"))
+    with np.load(os.path.join(model, "policy_weights.npz")) as d:
+        sd = {k.replace("__", "."): torch.as_tensor(d[k]) for k in d.files}
+    buf = io.BytesIO()
+    torch.save(sd, buf)
+    with zipfile.ZipFile(os.path.join(src, "best_model", "best_model.zip"), "w") as z:
+        z.writestr("policy.pth", buf.getvalue())
+    shutil.copy(os.path.join(model, "rl_config.yaml"), os.path.join(src, "rl_config.yaml"))
+
+
+DECIMAL = re.compile(r"-?\d+\.\d+")
+
+
+def lap_numbers(log):
+    """A one-scenario SimLog's statistics, recomputed here on the host in
+    float64: |lat_dev| mean, max, RMS; |vel_dev| mean, RMS; solver-ok share."""
+    lat = log.lat_dev.double().cpu().numpy().ravel()
+    vel = log.vel_dev.double().cpu().numpy().ravel()
+    status = log.simSolverDebug[..., 4].cpu().numpy().ravel()
+    return dict(mean=np.abs(lat).mean(), max=np.abs(lat).max(), rms=np.sqrt((lat ** 2).mean()),
+                vmean=np.abs(vel).mean(), vrms=np.sqrt((vel ** 2).mean()),
+                ok=float(np.mean(status == 0)),
+                finite=bool(np.isfinite(lat).all() and np.isfinite(vel).all()))
+
+
+def eval_recheck(name, argv, res, printed):
+    """What an evaluation tool printed against what it returned: its
+    statistics recomputed from the returned logs (laps) or arrays (catalogs)
+    and formatted as the tool formats them, equal to the printed decimals;
+    solver-ok >= 0.99 on every lap and catalog; the catalog's JSON as
+    written, with the committed Logs/catalog_noise_r5.json's keys and the
+    full batches. Returns the mismatches (empty when all hold)."""
+    errors = []
+    lines = printed.splitlines()
+
+    def expect(tag, line, want):
+        got = DECIMAL.findall(line)[:len(want)]
+        if got != want:
+            errors.append(f"{tag}: printed {got}, recomputed {want}")
+
+    def lap(tag, log, line, digits, rms=False):
+        m = lap_numbers(log)
+        if not m["finite"] or m["ok"] < 0.99:
+            errors.append(f"{tag}: finite {m['finite']}, solver ok {m['ok']}")
+        keys = ("rms", "max", "vrms") if rms else ("mean", "max", "vmean")
+        expect(tag, line, [f"{m[k]:.{digits}f}" for k in keys] + [f"{m['ok'] * 100:.1f}"])
+
+    stats_lines = [ln for ln in lines if " dev_lat " in ln]
+    if name in ("one_lap", "quality_exp"):
+        lap(name, res["log"], stats_lines[-1], 4 if name == "quality_exp" else 3)
+    elif name == "multitrack_eval":
+        if len(res) != 9 or len(stats_lines) != 9:
+            errors.append(f"multitrack_eval: {len(res)} rows, {len(stats_lines)} lines")
+        for r, line in zip(res, stats_lines):
+            lap(f"multitrack_eval {r['track']} {r['ctrl']}", r["log"], line, 3)
+    elif name == "wmpc_eval":
+        lap(name, res["log"], stats_lines[-1], 3, rms=True)
+        if not bool((res["log"].wmpc_action >= 0).all()):
+            errors.append("wmpc_eval: a step logged no action")
+    elif name == "rl_protocol_eval":
+        row_lines = [ln for ln in lines if "| mean RMS" in ln]
+        if len(row_lines) != len(res):
+            errors.append(f"rl_protocol_eval: {len(res)} rows, {len(row_lines)} lines")
+        for r, line in zip(res, row_lines):
+            ms = [lap_numbers(lp["log"]) for lp in r["laps"]]
+            for lp, m in zip(r["laps"], ms):
+                if not m["finite"] or m["ok"] < 0.99:
+                    errors.append(f"rl_protocol_eval {r['name']} {lp['track']}: {m}")
+            want = [f"{m[k]:.3f}" for m in ms for k in ("rms", "max", "vrms")]
+            want += [f"{np.mean([m['rms'] for m in ms]):.3f}", f"{max(m['max'] for m in ms):.3f}"]
+            expect(f"rl_protocol_eval {r['name']}", line, want)
+    elif name == "catalog_noise_validation":
+        with open(res["out"]) as f:
+            report = json.load(f)
+        with open(os.path.join(REPO, "Logs", "catalog_noise_r5.json")) as f:
+            ref = json.load(f)
+        if report != res["report"] or list(report) != list(ref):
+            errors.append(f"catalog: the JSON written differs or has keys {list(report)}")
+        for cat, run in res["runs"].items():
+            mx, ok = run["max_lat"], run["ok"]
+            entry = report["catalogs"][cat]
+            worst, low = mx.max(axis=(1, 2)), ok.min(axis=(1, 2))
+            want = {"n_sets": mx.shape[0], "worst_max_lat_dev": float(worst.max()),
+                    "median_max_lat_dev": float(np.median(worst)),
+                    "min_solver_ok": float(low.min()),
+                    "sets_flagged": [int(i) for i in np.nonzero((worst > 2.0) | (low < 1.0))[0]],
+                    "per_set_worst": [round(float(v), 3) for v in worst],
+                    "per_set_ok": [round(float(v), 4) for v in low]}
+            if entry != want or list(entry) != list(next(iter(ref["catalogs"].values()))):
+                errors.append(f"catalog {cat}: JSON entry {entry} != recomputed {want}")
+            if mx.size != CATALOG_SCENARIOS.get(cat, mx.size) or not np.isfinite(mx).all():
+                errors.append(f"catalog {cat}: {mx.size} scenarios, finite {np.isfinite(mx).all()}")
+            if low.min() < 0.99:
+                errors.append(f"catalog {cat}: min solver ok {low.min()}")
+            (line,) = [ln for ln in lines if ln.startswith(f"{cat}: ")]
+            expect(f"catalog {cat}", line, [f"{want['worst_max_lat_dev']:.3f}",
+                                            f"{want['median_max_lat_dev']:.3f}",
+                                            f"{want['min_solver_ok']:.4f}"])
+    elif name == "convert_sb3_checkpoint":
+        out = os.path.join(REPO, argv[1], "new_BO_F")
+        with np.load(os.path.join(out, "policy_weights.npz")) as got, \
+                np.load(os.path.join(REPO, WMPC_MODEL, "policy_weights.npz")) as want:
+            if sorted(got.files) != sorted(want.files) or any(
+                    not np.array_equal(got[k], want[k]) for k in want.files):
+                errors.append("convert_sb3_checkpoint: the npz differs from the shipped one")
+        if res != ["new_BO_F"] or not os.path.exists(os.path.join(out, "rl_config.yaml")):
+            errors.append(f"convert_sb3_checkpoint: converted {res}")
+    return errors
+
+
+def eval_child(runs):
+    """`--eval-child RUNS`: each [tool, argv] of RUNS (JSON) on the card in
+    this process, the launch counters reset just before and read just
+    after; prints the tool's output, then one `TOOL {...}` line: its
+    seconds, launches, whether every number it returned and printed is
+    finite, its headline numbers, `errors` (eval_recheck; for
+    acc24_figures the propagation's gap from the CPU's float64 one beyond
+    TOL_PROPAGATION) and `extra`: closed-loop steps (laps), scenarios and
+    steps a second (catalogs), the propagation's gap. A tool that raises
+    ends the process with a traceback and a non-zero exit."""
+    import contextlib
+    import importlib
+    import io
+    from tum_control_tpu_torch.ops.kernels import build
+    from tum_control_tpu_torch.tools.common import all_finite
+
+    for name, argv in runs:
+        if name == "convert_sb3_checkpoint":
+            make_sb3_checkpoint(os.path.join(REPO, argv[0]))
+        pkg = "scripts" if name == "acc24_figures" else "tools"
+        mod = importlib.import_module(f"tum_control_tpu_torch.{pkg}.{name}")
+        buf = io.StringIO()
+        build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            if name == "acc24_figures":
+                res = mod.propagate(torch.device("cuda"))[0]
+            else:
+                res = mod.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        printed = buf.getvalue()
+        print(printed, end="", flush=True)
+        extra = {}
+        if name == "acc24_figures":
+            ref = mod.propagate("cpu", torch.float64)[0]
+            extra["gap"] = float(np.abs(res - ref).max() / np.abs(ref).max())
+            errors = ([] if extra["gap"] <= TOL_PROPAGATION else
+                      [f"acc24_figures: propagation {extra['gap']:.3e} from the CPU's float64"])
+            errors += [] if res.shape == (15, 11, 8) else [f"samples of shape {res.shape}"]
+        else:
+            errors = eval_recheck(name, argv, res, printed)
+        if isinstance(res, dict) and "log" in res:
+            extra["steps"] = res["log"].lat_dev.shape[1]
+        if name == "catalog_noise_validation":
+            steps = int(round(float(argv[argv.index("--T") + 1]) / 0.02))
+            extra["catalogs"] = {c: dict(scenarios=r["scenarios"], seconds=r["seconds"],
+                                         solves_per_s=r["scenarios"] * steps / r["seconds"])
+                                 for c, r in res["runs"].items()}
+        rec = dict(name=name, argv=argv, seconds=secs, launches=launches,
+                   finite=all_finite(res) and not NONFINITE.search(printed),
+                   headline=headline(res), errors=errors, extra=extra)
+        print("TOOL " + json.dumps(rec), flush=True)
+    return 0
+
+
+def eval_phase(smi):
+    """Phase 11: the evaluation tools (EVAL) in a child process; each must
+    exit normally, return and print finite numbers, print what it returned
+    (eval_recheck), and launch its kernels (tool_kernels) and no other.
+    Prints each one's headline numbers and seconds beside the card,
+    quality_exp's launches per step, and each catalog's scenarios and
+    solves/s. Returns {"eval/<tool>": launches}."""
+    torch.cuda.empty_cache()
+    recs = finish_tool_children(start_tool_children([EVAL], mode="--eval-child"))
+    check([r["name"] for r in recs] == [n for n, _ in EVAL], "an evaluation tool did not report")
+    out = {}
+    for r in recs:
+        tag = f"[eval/{r['name']} {' '.join(r['argv'])}]"
+        check(r["finite"], f"{tag}: non-finite numbers")
+        check(not r["errors"], f"{tag}: " + "; ".join(r["errors"]))
+        for name, n in r["launches"].items():
+            if name in tool_kernels(r["name"], r["argv"]):
+                check(n > 0, f"{tag}: kernel {name} was not launched")
+            else:
+                check(n == 0, f"{tag}: kernel {name} was launched")
+        launched = {k: n for k, n in r["launches"].items() if n}
+        say(f"{tag} {smi}: {r['seconds']:.1f} s; launches {json.dumps(launched)}; "
+            f"{json.dumps(r['extra'])}; {json.dumps(r['headline'])}")
+        if r["name"] in ("quality_exp", "one_lap") and r["extra"].get("steps"):
+            per = {k: n / r["extra"]["steps"] for k, n in launched.items()}
+            say(f"{tag} launches per closed-loop step: {json.dumps(per)}")
+        for cat, c in r["extra"].get("catalogs", {}).items():
+            say(f"[eval/catalog] {cat} {smi}: {c['scenarios']} scenarios in one batch, "
+                f"{c['seconds']:.3f} s, {c['solves_per_s']:.1f} solves/s")
+        out[f"eval/{r['name']}"] = r["launches"]
+    return out
+
+
+def eval_holds(dev):
+    """The sqp_iters = 2 and catalog paths on the card, set up for cpu_phase
+    (EVAL_HOLD): sqp2 from B lap points after `settle` card steps; the
+    catalog's 315 scenarios of F_jax_r4.csv on their laps under their weights
+    and their seed's noise for `settle` card steps, then `subset` of them,
+    spread over sets, tracks and seeds, each step fed the card's noise for
+    that step and its own lap and weights on the CPU's device and type."""
+    from tum_control_tpu_torch.api import build_simulation
+    from tum_control_tpu_torch.config import MPCConfig, SimConfig
+    from tum_control_tpu_torch.learn.wmpc import load_param_table
+    from tum_control_tpu_torch.parallel.mesh import batched_scenarios
+    from tum_control_tpu_torch.tools import catalog_noise_validation as cn
+    from tum_control_tpu_torch.tools.common import take_rows
+
+    f32, holds = torch.float32, {}
+    h = EVAL_HOLD["sqp2"]
+    sim_cfg, mpc_cfg = SimConfig(sim_mode=0), MPCConfig(sqp_iters=2)
+    sim, _, _, traj, _ = build_simulation(sim_cfg, mpc_cfg, device=dev)
+    x0m, x0s = batched_scenarios(traj, h["B"], dtype=f32, device=dev)
+    carry, log = sim.run(x0m, x0s, h["settle"], key=0)
+    check(bool((log.simSolverDebug[..., 2] == 2).all()), "sqp2: a step ran another SQP count")
+    holds["sqp2"] = dict(sim=sim, carry=carry, n=h["n"], sim_cfg=sim_cfg, mpc_cfg=mpc_cfg)
+
+    h = EVAL_HOLD["catalog"]
+    n_seeds = 3
+    sim_cfg, mpc_cfg = cn.noise_config((h["settle"] + h["n"]) * 0.02), MPCConfig()
+    sim = build_simulation(sim_cfg, mpc_cfg, device=dev)[0]
+    table = load_param_table(os.path.join(REPO, h["catalog"]))
+    noise = cn.seed_noise(sim, range(n_seeds), h["settle"] + h["n"])
+    carry, traj, mods, seed_pos = cn.catalog_start(sim, table, stacked_laps(EVAL_TRACKS, dev, f32),
+                                                  n_seeds)
+    check(carry.x_sim.shape[0] == CATALOG_SCENARIOS[h["catalog"]], "catalog hold: batch size")
+    w_se, zero = noise[seed_pos], torch.zeros_like(carry.x_sim)
+    for k in range(h["settle"]):
+        carry, _ = sim.step(carry, zero, w_se[:, k], traj=traj, mods=mods)
+    idx = torch.linspace(0, carry.x_sim.shape[0] - 1, h["subset"], device=dev).round().long()
+    laps = {}
+
+    def inputs(s, c, k):
+        d, dt = c.x_sim.device, c.x_sim.dtype
+        if s not in laps:
+            _, tr, md, _ = cn.catalog_start(s, table, stacked_laps(EVAL_TRACKS, d, dt), n_seeds)
+            laps[s] = dict(traj=take_rows(tr, idx), mods=take_rows(md, idx))
+        w = w_se[idx, h["settle"] + k].to(d, dt)
+        return torch.zeros_like(c.x_sim), w, laps[s]
+    holds["catalog"] = dict(sim=sim, carry=take_rows(carry, idx), n=h["n"], sim_cfg=sim_cfg,
+                            mpc_cfg=mpc_cfg, inputs=inputs)
+    return holds
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs on a GPU", file=sys.stderr)
@@ -2084,6 +2447,8 @@ def main():
     t = lap("start and build", t_start)
     if sys.argv[1:2] == ["--tools-child"]:
         return tools_child(json.loads(sys.argv[2]), int(sys.argv[3]))
+    if sys.argv[1:2] == ["--eval-child"]:
+        return eval_child(json.loads(sys.argv[2]))
     results, jobs = kernel_phase(dev)
     t = lap("kernel phase", t)
     if "--kernels-only" in sys.argv[1:]:
@@ -2106,6 +2471,10 @@ def main():
     t = lap("serve", t)
     runs["distributed"] = distributed_phase(dev)
     t = lap("distributed", t)
+    eval_launches = eval_phase(smi.splitlines()[0])
+    t = lap("eval", t)
+    holds = eval_holds(dev)
+    t = lap("eval holds on the card", t)
     for path in PATHS:
         run = runs[path]
         run["kernels_per_step"] = profile_window(
@@ -2133,6 +2502,9 @@ def main():
         for path in ENTRY:
             cpu_phase(path, **runs[path]["hold"])
             t = lap(f"cpu/{path}", t)
+        for path in EVAL_CPU:
+            cpu_phase(f"eval/{path}", **holds[path])
+            t = lap(f"cpu/eval/{path}", t)
     except BaseException:
         stop_tool_children(side)
         raise
@@ -2146,8 +2518,9 @@ def main():
                                       for path in ("nominal", "snmpc")}, side_recs)
     t = lap("tools", t)
     lap("whole script after the imports", t_start)
-    all_paths = list(PATHS) + list(TUNING) + list(ENTRY) + list(SERVE)
-    per_path = {path: runs[path]["launches"] for path in all_paths}
+    all_paths = list(PATHS) + list(TUNING) + list(ENTRY) + list(SERVE) + list(eval_launches)
+    per_path = {path: runs[path]["launches"] for path in all_paths if path in runs}
+    per_path.update(eval_launches)
     check(set(results) == set(build.LAUNCHES), "kernel list and launch counters differ")
     kernels = []
     for name in build.LAUNCHES:

@@ -15,6 +15,11 @@ main.py's closed loop): K1 and K4 at that shape, and 5 steps of the entry
 module's run_main through K1-K5. The tire gradient through K1-K5 (their
 backward the plain versions' VJP) against the CPU. Two tools: profile_step's
 per-stage kernel counts, and diag_precision --tf32 restoring the flags.
+No host sync: steps of each loop path (WMPC: a policy period) and one
+served cycle of the pipelined dispatcher under
+torch.cuda.set_sync_debug_mode("error"). The evaluation tools at a tiny T:
+each runs on the card and launches its path's kernels (and no other); the
+acc24 propagation against the CPU's float64 one; the SB3 converter.
 
 Marked `cuda`; without a CUDA device every test skips. On a GPU machine:
 
@@ -34,7 +39,7 @@ import torch
 from chip_smoke import (
     BACKWARD_TOL, NOMINAL_KERNELS, PATH_CONFIG, TOL_ENV, TOL_GRAD, TOL_OBJ, TRACKS_BO,
     backward_error, diffmode_gradient, diffmode_references, grad_gap, ipm_shaped_h, ipm_start,
-    k4_args, make_env, random_qp, stacked_laps,
+    k4_args, make_env, random_qp, stacked_laps, without_sync,
 )
 from tum_control_tpu_torch.api import build_controller, build_simulation
 from tum_control_tpu_torch.config import MPCConfig, SimConfig
@@ -677,3 +682,86 @@ def test_profile_step_counts_each_stage_on_the_card(dev):
     assert set(res["build_qp"]["launches"]) == {"linearize", "condense"}
     assert set(res["ipm+polish"]["launches"]) == {"cholesky", "ipm_iteration", "chol_solve"}
     assert set(res["full step"]["launches"]) == set(NOMINAL_KERNELS)
+
+
+@pytest.mark.parametrize("path", list(PATH_CONFIG))
+def test_loop_steps_make_no_host_sync(dev, path):
+    """Under torch.cuda.set_sync_debug_mode("error") (chip_smoke.without_sync)
+    no op of a step may make the host wait for the card."""
+    sim, _, _, traj, _ = build_simulation(SimConfig(sim_mode=0), MPCConfig(**PATH_CONFIG[path]))
+    x0m, x0s = batched_scenarios(traj, 4, dtype=torch.float32, device=dev)
+    carry, _ = sim.run(x0m, x0s, 2)
+    n = getattr(sim.controller, "period", 1)
+    carry, log = without_sync(lambda: sim.run_from(carry, n), path, n)
+    assert (log.simSolverDebug[..., 4] == 0).all() and torch.isfinite(log.simU).all()
+
+
+def test_served_cycle_makes_no_host_sync(dev):
+    from tum_control_tpu_torch.deploy_rt import PACKED, dispatch_step
+
+    sim, x0m, x0s, _, _ = build_simulation(SimConfig(sim_mode=0, T=0.1), MPCConfig())
+    carry = sim.init_carry(x0m[None], x0s[None], key=0)
+    zeros = torch.zeros_like(carry.x_sim)
+    rows = torch.empty((2, PACKED), dtype=torch.float32, pin_memory=True)
+    carry, ev = dispatch_step(sim, carry, zeros, rows[0])
+    ev.synchronize()
+    carry, ev = without_sync(lambda: dispatch_step(sim, carry, zeros, rows[1]), "serve", 1)
+    ev.synchronize()
+    assert torch.isfinite(rows).all() and float(rows[1, 6]) == 0.0
+
+
+EVAL_TOOLS = {
+    "one_lap": ["monteblanco", "snmpc", "0.1"],
+    "quality_exp": ["2", "--T", "0.1"],
+    "multitrack_eval": ["0.04"],
+    "wmpc_eval": ["data/wmpc_models/new_BO_F", "0.1", "lvms"],
+    "rl_protocol_eval": ["0.04", "data/wmpc_models/new_BO_F"],
+    "catalog_noise_validation": ["--T", "0.04", "--seeds", "1", "--tracks", "lvms",
+                                 "--catalogs", "data/F.csv"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(EVAL_TOOLS))
+def test_evaluation_tool_on_the_card(dev, name, tmp_path):
+    import importlib
+
+    from chip_smoke import tool_kernels
+
+    argv = EVAL_TOOLS[name]
+    if name == "catalog_noise_validation":
+        argv = argv + ["--out", str(tmp_path / "cat.json")]
+    mod = importlib.import_module(f"tum_control_tpu_torch.tools.{name}")
+    build.reset_launches()
+    res = mod.main(argv)
+    torch.cuda.synchronize()
+    launched = {k for k, n in build.LAUNCHES.items() if n}
+    assert launched == set(tool_kernels(name, argv)), launched
+    rows = res if isinstance(res, list) else [res]
+    for r in rows:
+        for lap in r.get("laps", [r]):
+            if "log" in lap:
+                assert lap["ok"] == 1.0 and np.isfinite(lap["lat_max"])
+    if name == "catalog_noise_validation":
+        assert res["runs"]["data/F.csv"]["max_lat"].shape == (26, 1, 1)
+
+
+def test_acc24_propagation_on_the_card(dev):
+    from chip_smoke import TOL_PROPAGATION
+    from tum_control_tpu_torch.scripts.acc24_figures import propagate
+
+    build.reset_launches()
+    got = propagate()[0]
+    assert not any(build.LAUNCHES.values())
+    ref = propagate("cpu", torch.float64)[0]
+    assert got.shape == ref.shape == (15, 11, 8)
+    assert np.abs(got - ref).max() <= TOL_PROPAGATION * np.abs(ref).max()
+
+
+def test_sb3_converter_loads_on_the_card(dev, tmp_path):
+    from chip_smoke import make_sb3_checkpoint
+    from tum_control_tpu_torch.tools import convert_sb3_checkpoint
+
+    make_sb3_checkpoint(str(tmp_path / "src"))
+    assert convert_sb3_checkpoint.main([str(tmp_path / "src"), str(tmp_path / "out")]) == \
+        ["new_BO_F"]
+    assert (tmp_path / "out" / "new_BO_F" / "rl_config.yaml").exists()

@@ -91,6 +91,41 @@ def test_estimator_ring_buffer():
     np.testing.assert_array_equal(st_t.buf.numpy(), np.asarray(st_j.buf))
 
 
+def test_estimator_builds_its_constants_once(monkeypatch):
+    """`estimate` makes no tensor from host data per call (on CUDA that copy
+    synchronizes the stream every closed-loop step): its window sizes and
+    slot ages are built at the first call on a device and reused
+    (device.py::device_constant). Each fill level 1..16 still matches JAX's
+    `estimate`."""
+    from tum_control_tpu_torch.device import device_constant
+
+    rng = np.random.default_rng(7)
+    xs = rng.normal(0, 1, (16, 2, 8))
+    st_t = test_.init_estimator(2, 8, torch.float64, device="cpu")
+    st_j = jax.vmap(lambda _: jest.init_estimator(8, jnp.float64))(jnp.arange(2))
+    step_j = jax.vmap(jest.estimate)
+    xs_t = [torch.tensor(x) for x in xs]
+    made = []
+    for name in ("as_tensor", "tensor", "from_numpy", "arange"):
+        real = getattr(torch, name)
+        monkeypatch.setattr(torch, name, lambda *a, _r=real, _n=name, **k: made.append(_n)
+                            or _r(*a, **k))
+    device_constant.cache_clear()  # the first call below builds the constants
+    for level, (x, x_t) in enumerate(zip(xs, xs_t), start=1):
+        f_t, st_t = test_.estimate(st_t, x_t)
+        f_j, st_j = step_j(st_j, x)
+        assert int(st_t.count[0]) == min(level, test_.BUF)
+        np.testing.assert_allclose(f_t.numpy(), np.asarray(f_j), rtol=RTOL, atol=1e-14)
+        if level == 1:
+            assert made == ["tensor", "tensor"], made
+            made.clear()
+    assert made == [], f"estimate made tensors after its first call: {made}"
+    cpu = torch.device("cpu")
+    assert device_constant(tuple(test_.WINDOW_SIZES.tolist()), cpu).tolist() == \
+        test_.WINDOW_SIZES.tolist()
+    assert device_constant(tuple(range(test_.BUF)), cpu).tolist() == list(range(test_.BUF))
+
+
 @pytest.mark.parametrize("track", TRACKS)
 def test_batched_scenarios(track):
     _, tj, tt = _load(track)

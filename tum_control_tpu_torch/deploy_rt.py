@@ -80,6 +80,21 @@ def packed_step(sim, carry, zeros):
     return carry, packed.to(torch.float32)
 
 
+def dispatch_step(sim, carry, zeros, row):
+    """The pipelined dispatcher's part of a cycle: packed_step, its vector
+    copied into the pinned host `row` with non_blocking=True, and on CUDA an
+    event recorded behind the copy on the carry's card (None on the CPU).
+    Nothing here waits for the device. Returns (carry, event)."""
+    carry, packed = packed_step(sim, carry, zeros)
+    row.copy_(packed, non_blocking=True)
+    device = carry.x_sim.device
+    if device.type != "cuda":
+        return carry, None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return carry, ev
+
+
 def _record(ex, t0, ns, p):
     ex.record(t0, ns, int(p[6]), float(p[2]), float(p[7]), float(p[8]),
               float(p[0]), float(p[1]))
@@ -172,12 +187,7 @@ def run_pipelined(sim, carry, ex, cycles: int, period: float, depth: int, lead_c
                 inflight.acquire()
                 t_disp = time.perf_counter_ns()
                 disp_log[i] = t_disp
-                carry, packed = packed_step(sim, carry, zeros)
-                host[i].copy_(packed, non_blocking=True)
-                ev = None
-                if device.type == "cuda":  # behind the copy, on the carry's card
-                    ev = torch.cuda.Event()
-                    ev.record(torch.cuda.current_stream(device))
+                carry, ev = dispatch_step(sim, carry, zeros, host[i])
                 enq_log[i] = time.perf_counter_ns() - t_disp
                 fetch_q.put((i, t_disp, ev))
             fetch_q.put(None)

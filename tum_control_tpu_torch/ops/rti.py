@@ -30,6 +30,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from tum_control_tpu_torch.device import device_constant
 from tum_control_tpu_torch.ops.ipm import IPMWarm, init_warm, solve_soft_qp_ipm
 from tum_control_tpu_torch.ops.kernels.condense import condense
 from tum_control_tpu_torch.ops.soft_qp import CondensedQP, mtv
@@ -227,9 +228,10 @@ class RTIEngine:
 
         if f.y_select is not None and f.resid_stage is None:
             # --- Gauss-Newton cost, selection-structured: y = [x[sel], u] ---
-            sel = list(f.y_select)
-            sel_e = list(f.y_select_term)
-            ns = len(sel)
+            # index tensors built once (a Python list index is a host sync)
+            sel = device_constant(tuple(f.y_select), x0.device)
+            sel_e = device_constant(tuple(f.y_select_term), x0.device)
+            ns = len(f.y_select)
             Y = f.y_stage(state.X[:, :-1], state.U)                   # (B, N, ny)
             r_x = Y[..., :ns] - yref[..., :ns] + e[:, :N][..., sel]     # (B, N, ns)
             r_u = Y[..., ns:] - yref[..., ns:]                          # (B, N, nu)

@@ -4,6 +4,10 @@ of tum_control_tpu/sim/estimator.py).
 Each of the 8 MPC-state components keeps a ring buffer of the last 15
 measurements and outputs the mean over its own window [1,1,4,2,2,3,4,2],
 truncated while the buffer is still filling.
+
+The window sizes and the buffer's slot ages are device constants, built once
+per device (device.py::device_constant): a tensor made from host data at
+every step would synchronize the stream on CUDA once per closed-loop step.
 """
 from __future__ import annotations
 
@@ -12,7 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tum_control_tpu_torch.device import resolve_device
+from tum_control_tpu_torch.device import device_constant, resolve_device
 
 BUF = 15
 WINDOW_SIZES = np.array([1, 1, 4, 2, 2, 3, 4, 2])
@@ -37,9 +41,9 @@ def estimate(state: EstimatorState, x, window_sizes=WINDOW_SIZES):
     """Push measurements x (B, nx), return (filtered_x (B, nx), new_state)."""
     buf = torch.cat([state.buf[:, :, 1:], x[:, :, None]], dim=2)  # newest last
     count = torch.clamp(state.count + 1, max=BUF)
-    w = torch.as_tensor(window_sizes, device=x.device)
+    w = device_constant(tuple(int(v) for v in window_sizes), x.device)
+    ages = device_constant(tuple(range(BUF)), x.device)
     eff = torch.minimum(w[None, :], count[:, None])                # (B, nx)
-    ages = torch.arange(BUF, device=x.device)
     take = ages[None, None, :] >= (BUF - eff[:, :, None])
     filtered = torch.sum(torch.where(take, buf, torch.zeros_like(buf)), dim=2) / eff.to(buf.dtype)
     return filtered, EstimatorState(buf=buf, count=count)

@@ -1,6 +1,8 @@
-"""Shared pieces of the measurement and diagnostic tools: the device and
-float type of a run, the card's name and power limit, the scenario starts
-of the per-stage tools, timing, and the kernels a call launches.
+"""Shared pieces of the measurement, diagnostic and evaluation tools: the
+device and float type of a run, the card's name and power limit, the
+scenario starts of the per-stage tools, the full-lap run of the evaluation
+tools (`lap_run`) and its statistics, rows of a batch (`take_rows`),
+timing, and the kernels a call launches.
 
 On the card a tool runs in float32 (`main(argv, dtype=...)` takes another
 type for the CPU); every time named "device" comes from CUDA events or the
@@ -13,6 +15,7 @@ import math
 import re
 import subprocess
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -180,3 +183,57 @@ def all_finite(x) -> bool:
     if isinstance(x, float):
         return math.isfinite(x)
     return True
+
+
+class Lap(NamedTuple):
+    carry: object      # the final SimCarry
+    log: object        # SimLog of (1, n_steps, ...)
+    stats: dict        # lap_stats(log) and `wall`, the run's seconds
+    build_s: float     # seconds of build_simulation
+    n_points: int      # M, the reference lap's points
+
+
+def lap_stats(log) -> dict:
+    """The statistics the full-lap tools print, from a SimLog of one
+    scenario, in float64 on the host: |lat_dev| mean and max, lat_dev RMS,
+    |vel_dev| mean, vel_dev RMS, and the solver-ok fraction (status 0)."""
+    host = lambda t: t.detach().double().cpu().numpy().ravel()
+    lat, vel = host(log.lat_dev), host(log.vel_dev)
+    ok = float(np.mean(log.simSolverDebug[..., 4].detach().cpu().numpy().ravel() == 0))
+    return dict(lat_mean=float(np.abs(lat).mean()), lat_max=float(np.abs(lat).max()),
+                lat_rms=float(np.sqrt((lat ** 2).mean())), vel_mean=float(np.abs(vel).mean()),
+                vel_rms=float(np.sqrt((vel ** 2).mean())), ok=ok)
+
+
+def lap_run(track: str, mpc_cfg, T: float, device, dtype=torch.float32, seed: int = 0) -> Lap:
+    """One scenario of `mpc_cfg` over `track` for T seconds (lap_config) from
+    the lap's start, the disturbance draws seeded with `seed`: the JAX
+    scripts' `build_simulation` + `sim.run(x0m, x0s, n, key=PRNGKey(seed))`.
+    `wall` is the run's seconds, synchronized on the card. The JAX scripts
+    time a jitted scan, its compile included; here each step launches the
+    kernels built before (chip_smoke.py) or at their first launch. The lap
+    is learn/evaluation.py::lap_config's."""
+    from tum_control_tpu_torch.api import build_simulation
+    from tum_control_tpu_torch.learn.evaluation import lap_config
+
+    sim_cfg = lap_config(track, T)
+    t0 = time.perf_counter()
+    sim, x0m, x0s, traj, _ = build_simulation(sim_cfg, mpc_cfg, device=device, dtype=dtype)
+    build_s = time.perf_counter() - t0
+    sync(device)
+    t0 = time.perf_counter()
+    carry, log = sim.run(x0m[None], x0s[None], sim_cfg.Nsim, key=seed)
+    sync(device)
+    wall = time.perf_counter() - t0
+    return Lap(carry, log, dict(lap_stats(log), wall=wall), build_s, traj.n_points)
+
+
+def take_rows(x, idx):
+    """Rows `idx` (a LongTensor) of every (B, ...) tensor of a nest of
+    NamedTuples (a SimCarry, a RefTrajectory of one lap per scenario,
+    QPMods); anything else (None, the carry's generator) passes through."""
+    if isinstance(x, torch.Tensor):
+        return x[idx.to(x.device)]
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(take_rows(v, idx) for v in x))
+    return x
