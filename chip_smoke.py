@@ -15,7 +15,11 @@ Phases (any failure raises and the script exits non-zero):
      N = 64 (nz + 1 = 129 columns), K7 on K3's and K5's, since no path
      launches them;
      K1-K5 also at the entry paths' batches, ENTRY_BATCHES: one scenario
-     and 52) on inputs from a seeded numpy generator, holds it against its plain
+     and 52; K1 also with one tire set per scenario, read from its tire
+     table, at the nominal shape and at the SNMPC's at UPH 15, 15 x 11 + 23
+     elements, after a bitwise check of the table launch against the
+     shared-tire launch on the same values; K6 also at the UPH 15 tail, 23
+     stages from column 30) on inputs from a seeded numpy generator, holds it against its plain
      PyTorch version on the same inputs (K3 and K7 also on an
      ill-conditioned IPM-shaped H, by backward error; K4 also on that H's
      factor, a late iteration's, against the float64 plain version within
@@ -124,8 +128,22 @@ Phases (any failure raises and the script exits non-zero):
      policy period) and one served cycle of the pipelined dispatcher
      (phase 6) run under torch.cuda.set_sync_debug_mode("error"): no step
      may make the host wait for the card;
+ 11b. `fit`: the tire-identification tools (golden_attribution,
+     fit_tires_es, fit_tires_closedloop) on a golden pair the card writes
+     (FIT_GOLDEN_STEPS of the nominal NMPC and the SNMPC at UPH 15 from
+     FIT_LAP_POINT, FIT_TIRES on plant and controller), in a child process
+     (`--fit-child`) after `eval` and before any profiler session: each must
+     exit normally, return and print finite numbers and launch K1-K6 and no
+     other; prints the seconds per Adam run, ES generation and gradient. Held
+     beside phase 8's CPU re-solves (children at TOOLS_SIDE_NICE): the
+     closed-loop fit's first loss terms against the CPU's float64 ones
+     (TOL_FIT_TERMS, TOL_FIT_DEV) and its first gradient against the nearest
+     of the CPU's four references (TOL_GRAD), the ES's first generation as one
+     batch against single-member runs on the card (TOL_FIT_DEV), the
+     attribution's theta against the CPU's float64 fit (TOL_FIT_THETA);
  12. prints the seconds each phase took, one {"kernels": [...]} line
-     (launches per path, the evaluation tools' as "eval/<tool>", and per
+     (launches per path, the evaluation tools' as "eval/<tool>", the fit
+     tools' and the goldens' as "fit/<tool>", and per
      closed-loop step on the entry, serving, sharding and differentiable
      paths; K7 and K8, which no path launches, with 0 and "path": null)
      and, last, the device line.
@@ -138,6 +156,7 @@ counts: no path runs, so no counter is read.
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
 """
+import contextlib
 import functools
 import json
 import os
@@ -165,6 +184,12 @@ NC = NCG + NZ
 # on 5 x 11 head + 33 tail elements per scenario, K6 on the 33-stage tail
 NS1, UPH = 11, 5
 N2, COL0 = N - UPH, UPH * NU
+# the tire-identification tools' SNMPC: UPH 15 (K1 on 15 x 11 + 23 elements
+# a scenario, K6 on the 23-stage tail from column 30)
+UPH15 = 15
+# K1's parameter block slots (kernel_params) of the tire table's columns:
+# Bf .. Er, Fmax_f, Fmax_r, 1 / Fmax_f, 1 / Fmax_r
+TABLE_SLOTS = (14, 15, 16, 17, 18, 19, 20, 21, 12, 13, 24, 25)
 # K1's input states in kernel_phase: normal about lap states, by this spread
 STATE_SPREAD = np.array([0.5, 0.5, 0.05, 1, 0.1, 0.05, 0.02, 0.5])
 # the entry paths' batches, at which kernel_phase also holds K1-K5: one
@@ -363,6 +388,63 @@ EVAL_CPU = tuple(EVAL_HOLD)
 # what a tool returns that is no headline number (carries, outputs, QPs)
 TOOL_BULK = {"carry", "out", "qps", "w_ipm", "w_scipy", "log", "noise"}
 NONFINITE = re.compile(r"\b(nan|inf)\b", re.IGNORECASE)
+
+# the `fit` phase (after `eval`, before any profiler session): the
+# tire-identification tools (tum_control_tpu_torch/tools/golden_attribution,
+# fit_tires_es, fit_tires_closedloop) on a synthetic golden pair the card
+# writes, since the ACC24 goldens are not in the repository: FIT_GOLDEN_STEPS
+# steps (1 s of the goldens' 120 s) of the nominal NMPC and of the SNMPC at
+# UPH 15 from FIT_LAP_POINT in the first corner (in batched_scenarios'
+# state), B = 1, FIT_TIRES on plant and controller. Not from the lap's
+# start: on the opening straight |dev_lat| is ~1e-3 m (the ES's laps
+# there, held below), and a trace term, a mean square of differences of
+# such deviations, lies within a few float32 spacings of Monteblanco's
+# coordinates (1.5e-5 m between 128 and 256 m); nor from lap point 215,
+# where a cold-started SNMPC chunk fails solves inside the masked steps and
+# the failed solves' re-initialisation parts float32 from float64 further.
+# The ES's laps start at the lap's start regardless (the tool's own). The
+# tools run at full width (N = 38; SNMPC 10 samples, UPH 15)
+# and cut depth in one child process (`--fit-child`): the attribution's
+# transition fit (200 of its 3,000 Adam steps) and its four laps cut to
+# 0.5 s of 120; the ES at pop 8 (of 16) for 2 (of 60) generations of the
+# golden's full 1 s lap; the closed-loop fit at 2 (of 24) chunks of 6 (of
+# 250) steps, skip 2 (of 50), for 2 (of 150) gradients. Held beside the CPU
+# re-solves (children at TOOLS_SIDE_NICE): the fit's first loss terms
+# against the CPU's float64 ones (TOL_FIT_TERMS) and its first gradient
+# against the nearest of the CPU's four references (TOL_GRAD, as diffmode);
+# the ES's first generation (pop 8 as one batch) against 8 single-member
+# runs on the card (TOL_FIT_DEV); the attribution's fitted theta against
+# the CPU's float64 fit (TOL_FIT_THETA)
+FIT_TIRES = "EDGAR/pacejka_params_2023fit.yaml"
+FIT_GOLDEN_STEPS = 50
+FIT_LAP_POINT = 240
+FIT_DIR = os.path.join("build", "chip_smoke", "fit")
+FIT_RUNS = [("golden_attribution", ["--steps", "200", "--T", "0.5"]),
+            ("fit_tires_es", ["--pop", "8", "--gens", "2"]),
+            ("fit_tires_closedloop", ["--n-chunks", "2", "--chunk-len", "6", "--skip", "2",
+                                      "--steps", "2"])]
+FIT_KERNELS = ("linearize", "condense", "condense_from", "cholesky", "chol_solve",
+               "ipm_iteration")
+# the card's first loss terms against the CPU's float64 ones: both ratios
+# within TOL_FIT_TERMS relative, the solver-ok shares equal. A trace (the
+# mean square of |dev_lat| minus the golden's) is a difference of two
+# float32 lateral deviations, which float32 resolves to a few spacings of
+# the coordinates (the CPU's own float32 |dev_lat| parts from float64 by up
+# to ~5e-5 m over a 6-step chunk, its traces by ~1.4e-3 relative): each is
+# held to what a |dev_lat| within TOL_FIT_DEV moves it by, 2 sqrt(trace)
+# TOL_FIT_DEV + TOL_FIT_DEV^2; the loss to what the ratio and trace bounds
+# move it by. The ES's members as one batch against single-member runs,
+# both float32 on the card: mean and max |lat_dev| within TOL_FIT_DEV,
+# solver-ok equal. The batch size changes a library kernel's summation
+# order, and the two loops part by float32 spacings of the coordinates, a
+# large share of the ~1e-3 m deviations of the opening straight
+# (tests/test_torch_tire_fit.py holds the batch to single runs in float64
+# at 1e-10). TOL_FIT_DEV is ~7 spacings
+TOL_FIT_TERMS = 1e-3
+TOL_FIT_DEV = 1e-4
+# the attribution's fitted log-multipliers, absolute: both fits run in float64
+TOL_FIT_THETA = 1e-3
+FIT_TERMS = ("loss", "rn", "rs", "tn", "ts", "okn", "oks")
 
 # tolerance of each kernel against its plain version on the same inputs, held
 # for every output on its own (for K1 every column of J) as
@@ -643,8 +725,11 @@ def kernel_phase(dev):
         condense_mxu_ref, condense_ref,
     )
     from tum_control_tpu_torch.ops.kernels.ipm_iter import fused_iteration_cuda, iteration_ref
-    from tum_control_tpu_torch.ops.kernels.linearize import linearize_cuda, linearize_ref
+    from tum_control_tpu_torch.ops.kernels.linearize import (
+        LinearizeRollout, linearize_cuda, linearize_ref,
+    )
     from tum_control_tpu_torch.parallel.mesh import batched_scenarios
+    from tum_control_tpu_torch.params import TireParams
     from tum_control_tpu_torch.track.trajectory import load_ref_trajectory
 
     rng = np.random.default_rng(0)
@@ -708,7 +793,9 @@ def kernel_phase(dev):
         return x0, torch.tensor(np.concatenate([X, U], axis=2), dtype=torch.float32, device=dev)
 
     def hold_linearize(XU, lin, case):
-        F, J = linearize_cuda(XU, lin.prm, lin.n_sub)
+        """K1 with `lin`'s tires: its argument block's shared set, or its
+        tire table's rows (one per scenario), read once each."""
+        F, J = linearize_cuda(XU, lin.prm, lin.n_sub, tires=lin.table)
         Fp, Jp = linearize_ref(XU, lin.step, NX)
         err = compare("linearize", [("F", F, Fp)] + [(f"J[..., {c}]", J[..., c], Jp[..., c])
                                                      for c in range(NX + NU)])
@@ -716,8 +803,9 @@ def kernel_phase(dev):
         # primitive operations, and the 10 input directions' tangents at ~2
         # operations per primitive each
         ops = XU.shape[0] * XU.shape[1] * 4 * lin.n_sub * 112 * (1 + 2 * 10)
-        record("linearize", err, lambda: linearize_cuda(XU, lin.prm, lin.n_sub),
-               lambda: linearize_ref(XU, lin.step, NX), nbytes(XU, F, J), ops, case=case,
+        table = () if lin.table is None else (lin.table,)
+        record("linearize", err, lambda: linearize_cuda(XU, lin.prm, lin.n_sub, tires=lin.table),
+               lambda: linearize_ref(XU, lin.step, NX), nbytes(XU, F, J, *table), ops, case=case,
                plain_runs=3)
         return J
 
@@ -955,6 +1043,51 @@ def kernel_phase(dev):
         hold_solve("chol_solve", Lb, torch.tensor(rng.standard_normal((batch, NZ)),
                                                   dtype=torch.float32, device=dev), case)
         hold_ipm(qpb, carryb, ntb, Lb, case)
+
+    # K1 with one tire set per scenario (the batched population of
+    # tools/fit_tires_es.py). First, bitwise: the kernel reading a table
+    # whose every row holds the argument block's own tire values equals the
+    # shared-tire launch, at the nominal shape
+    prm = list(lr.prm)
+    rows = torch.tensor([prm[i] for i in TABLE_SLOTS], dtype=torch.float32,
+                        device=dev).expand(B, -1).contiguous()
+    F1, J1 = linearize_cuda(XU, lr.prm, lr.n_sub)
+    F2, J2 = linearize_cuda(XU, lr.prm, lr.n_sub, tires=rows)
+    check(torch.equal(F1, F2) and torch.equal(J1, J2),
+          "linearize: the table launch differs from the shared-tire launch on the same values")
+    say("[linearize/tires] the table launch equals the shared-tire launch bit for bit")
+    # then distinct tires: the shipped set times exp(theta_b), theta_b ~
+    # N(0, 0.05^2) per scenario and coefficient, at the nominal shape and at
+    # the SNMPC's at UPH 15 (15 x 11 head and 23 tail elements a scenario)
+    tvals = np.exp(np.log(np.array(lr.tp[:8])) + rng.normal(0, 0.05, (B, 8)))
+    tpB = TireParams(*torch.tensor(tvals.T, dtype=torch.float32, device=dev).unbind(0),
+                     mu=lr.tp.mu)
+    hold_linearize(XU, LinearizeRollout(lr.vp, tpB, lr.dt, lr.n_sub), "tires")
+    head15 = np.concatenate([Xs[:, :UPH15], np.broadcast_to(Us[:, :UPH15, None],
+                                                            (B, UPH15, NS1, NU))],
+                            axis=-1).reshape(B, UPH15 * NS1, NX + NU)
+    tail15 = np.concatenate([Xs[:, UPH15:, 0], Us[:, UPH15:]], axis=-1)
+    XU15 = torch.tensor(np.concatenate([head15, tail15], axis=1), dtype=torch.float32, device=dev)
+    J15 = hold_linearize(XU15, LinearizeRollout(lr.vp, tpB, slr.dt, 1), "snmpc_uph15_tires")
+
+    # K6 at the UPH 15 tail: 23 stages from a carry dense in its first 30
+    # columns, on the tail rows' K1 sensitivities
+    n15, col15 = N - UPH15, UPH15 * NU
+    At = J15[:, UPH15 * NS1:, :, :NX].contiguous()
+    Bt = J15[:, UPH15 * NS1:, :, NX:].contiguous()
+    xit = torch.tensor(rng.normal(0, 0.01, (B, n15, NX)), dtype=torch.float32, device=dev)
+    e0 = torch.tensor(rng.normal(0, 0.1, (B, NX)), dtype=torch.float32, device=dev)
+    G0 = np.zeros((B, NX, NZ))
+    G0[..., :col15] = rng.normal(0, 0.1, (B, NX, col15))
+    G0 = torch.tensor(G0, dtype=torch.float32, device=dev)
+    args15 = (At, Bt, xit, e0, G0, col15)
+    e6, G6 = condense_from_cuda(*args15)
+    e6p, G6p = condense_from_ref(*args15)
+    err = compare("condense_from", [("e", e6, e6p), ("Gamma", G6, G6p)])
+    ops = B * sum(2 * NX * NX * (col15 + t * NU + 1) + 2 * NX * NU for t in range(n15))
+    record("condense_from", err, lambda: condense_from_cuda(*args15),
+           lambda: condense_from_ref(*args15), nbytes(At, Bt, xit, e0, G0, e6, G6), ops,
+           case="uph15")
     return results, jobs
 
 
@@ -1846,6 +1979,31 @@ def distributed_phase(dev):
     return dict(launches=launches, steps=DIST_STEPS + 2 * SCALING["steps"], rows=rows)
 
 
+@contextlib.contextmanager
+def k2_valued(dtype):
+    """Inside, K2's outputs (ops/rti.py's condense) take the values of its
+    plain version computed in `dtype` and keep the derivative of the type
+    they are computed in; `dtype` None changes nothing."""
+    from tum_control_tpu_torch.ops import rti
+
+    if dtype is None:
+        yield
+        return
+    condense = rti.condense
+
+    def valued(*args):
+        out = condense(*args)
+        with torch.no_grad():
+            val = condense(*(t.to(dtype) for t in args))
+        return tuple(t + (v.to(t) - t.detach()) for t, v in zip(out, val))
+
+    rti.condense = valued
+    try:
+        yield
+    finally:
+        rti.condense = condense
+
+
 def diffmode_gradient(device, dtype, k2_values=None):
     """mean |lat_dev| over DIFF_STEPS steps of the nominal loop at DIFF_B
     scenarios from HOLD_LAP_POINT, and its gradient with respect to the 8
@@ -1857,24 +2015,12 @@ def diffmode_gradient(device, dtype, k2_values=None):
     from tum_control_tpu_torch.config import (
         DEFAULT_CONFIG_PATH, MPCConfig, SimConfig, load_tire_params,
     )
-    from tum_control_tpu_torch.ops import rti
     from tum_control_tpu_torch.parallel.mesh import batched_scenarios
     from tum_control_tpu_torch.params import scaled_tire_params
 
     if k2_values is not None:
-        condense = rti.condense
-
-        def valued(*args):
-            out = condense(*args)
-            with torch.no_grad():
-                val = condense(*(t.to(k2_values) for t in args))
-            return tuple(t + (v.to(t) - t.detach()) for t, v in zip(out, val))
-
-        rti.condense = valued
-        try:
+        with k2_valued(k2_values):
             return diffmode_gradient(device, dtype)
-        finally:
-            rti.condense = condense
     sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
     sync()
     t0 = time.perf_counter()
@@ -2415,6 +2561,269 @@ def eval_holds(dev):
     return holds
 
 
+def jsonable(x):
+    """Nested dicts, NamedTuples, sequences, arrays and tensors as JSON values."""
+    if isinstance(x, dict):
+        return {str(k): jsonable(v) for k, v in x.items()}
+    if hasattr(x, "_asdict"):
+        return jsonable(x._asdict())
+    if isinstance(x, (list, tuple)):
+        return [jsonable(v) for v in x]
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    if isinstance(x, np.ndarray):
+        return x.tolist()
+    if isinstance(x, np.generic):
+        return x.item()
+    return x
+
+
+def fit_argv(name, argv):
+    """A fit tool's argv with the synthetic goldens and outputs under FIT_DIR."""
+    d = os.path.join(REPO, FIT_DIR)
+    out = {"golden_attribution": ["--out", os.path.join(d, "attribution",
+                                                        "pacejka_params_2023fit.yaml")],
+           "fit_tires_es": ["--out", os.path.join(d, "es.yaml"), "--log",
+                            os.path.join(d, "es.txt")],
+           "fit_tires_closedloop": ["--out", os.path.join(d, "cl.yaml"), "--log",
+                                    os.path.join(d, "cl.txt")]}[name]
+    return argv + ["--golden", os.path.join(d, "nominal", "full_logs.npz"),
+                   "--golden-snmpc", os.path.join(d, "snmpc", "full_logs.npz")] + out
+
+
+def check_fit_launches(tag, launches):
+    """K1-K6 of the nominal NMPC and the SNMPC, and no other kernel."""
+    for name, n in launches.items():
+        if name in FIT_KERNELS:
+            check(n > 0, f"{tag}: kernel {name} was not launched")
+        else:
+            check(n == 0, f"{tag}: kernel {name} was launched")
+
+
+def fit_child(runs):
+    """`--fit-child RUNS`: each [tool, argv] of RUNS (JSON) on the card in
+    this process, the launch counters reset just before and read just
+    after; prints the tool's output, then one `TOOL {...}` line: its seconds,
+    launches, whether every number it returned and printed is finite, and
+    what it returned (`result`). A tool that raises ends the process with a
+    traceback and a non-zero exit."""
+    import importlib
+    import io
+    from tum_control_tpu_torch.ops.kernels import build
+    from tum_control_tpu_torch.tools.common import all_finite
+
+    for name, argv in runs:
+        mod = importlib.import_module(f"tum_control_tpu_torch.tools.{name}")
+        buf = io.StringIO()
+        build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = mod.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        printed = buf.getvalue()
+        print(printed, end="", flush=True)
+        rec = dict(name=name, argv=argv, seconds=secs, launches=dict(build.LAUNCHES),
+                   finite=all_finite(jsonable(res)) and not NONFINITE.search(printed),
+                   result=jsonable(res))
+        print("TOOL " + json.dumps(rec), flush=True)
+    return 0
+
+
+def fit_phase(dev, smi):
+    """The `fit` phase: the synthetic goldens on the card, then the three
+    tools in a child process; each must exit normally, return and print
+    finite numbers, and launch K1-K6 (FIT_KERNELS) and no other. Prints the
+    seconds of each unit of work beside the card. Returns dict(launches per
+    path "fit/<tool>", recs by tool, golden_s)."""
+    from tum_control_tpu_torch.config import MPCConfig
+    from tum_control_tpu_torch.ops.kernels import build
+    from tum_control_tpu_torch.tools import tire_fit
+
+    d = os.path.join(REPO, FIT_DIR)
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for name, cfg in (("nominal", MPCConfig()), ("snmpc", MPCConfig(**tire_fit.SNMPC))):
+        logs = tire_fit.write_golden(os.path.join(d, name, "full_logs.npz"), cfg,
+                                     FIT_GOLDEN_STEPS, FIT_TIRES, dev, torch.float32,
+                                     start=FIT_LAP_POINT)
+        check(bool(np.isfinite(logs["CiLX"]).all()), f"fit/golden {name}: non-finite states")
+        failed = np.flatnonzero(logs["simSolverDebug"][:, 4] != 0).tolist()
+        say(f"[fit/golden] {name}: {FIT_GOLDEN_STEPS} steps, mean |dev_lat| "
+            f"{np.abs(logs['dev_lat']).mean():.6f} m; failed solves at steps {failed}")
+    torch.cuda.synchronize()
+    golden_s = time.perf_counter() - t0
+    launches = {"fit/golden": dict(build.LAUNCHES)}
+    check_fit_launches("fit/golden", launches["fit/golden"])
+    say(f"[fit/golden] {smi}: both goldens in {golden_s:.2f} s")
+    torch.cuda.empty_cache()
+    recs = finish_tool_children(start_tool_children(
+        [[(n, fit_argv(n, a)) for n, a in FIT_RUNS]], mode="--fit-child"))
+    check([r["name"] for r in recs] == [n for n, _ in FIT_RUNS], "a fit tool did not report")
+    for r in recs:
+        tag = f"[fit/{r['name']}]"
+        check(r["finite"], f"{tag}: non-finite numbers")
+        check_fit_launches(tag, r["launches"])
+        launches[f"fit/{r['name']}"] = r["launches"]
+        launched = {k: n for k, n in r["launches"].items() if n}
+        say(f"{tag} {smi}: {r['seconds']:.2f} s; launches {json.dumps(launched)}")
+    res = {r["name"]: r["result"] for r in recs}
+    a = res["golden_attribution"]
+    say(f"[fit/golden_attribution] {smi}: {FIT_RUNS[0][1][1]} Adam steps in {a['fit_s']:.3f} s "
+        f"({a['fit_s'] / int(FIT_RUNS[0][1][1]) * 1e3:.3f} ms a step, float64); one-step RMS "
+        f"{a['rms0']:.6f} -> {a['rms1']:.6f}; laps (s): {json.dumps(a['laps_s'])}; "
+        f"verdicts {a['verdict']} / {a['verdict_snmpc']}")
+    for k, g in enumerate(res["fit_tires_es"]["generations"]):
+        b = g["best"]
+        say(f"[fit/fit_tires_es] {smi}: generation {k}: {g['seconds']:.3f} s for 8 members x "
+            f"2 laps of {FIT_GOLDEN_STEPS} steps; best fit {g['fit'][b]:.6f}, ratios "
+            f"{g['rn'][b]:.6f} / {g['rs'][b]:.6f}, ok {g['okn'][b]} / {g['oks'][b]}")
+    for k, it in enumerate(res["fit_tires_closedloop"]["iterations"]):
+        say(f"[fit/fit_tires_closedloop] {smi}: gradient {k}: {it['seconds']:.3f} s; loss "
+            f"{it['loss']:.6e}, ratios {it['rn']:.6f} / {it['rs']:.6f}, |g| {it['gnorm']:.4e}, "
+            f"sanitizer: smallest state scale {it['min_scale']:.4e}, largest |theta cotangent| "
+            f"{it['max_g_theta']:.4e}")
+    return dict(launches=launches, recs=res, golden_s=golden_s)
+
+
+def fit_cpu_child(runs, nice):
+    """`--fit-cpu-child RUNS NICE`: the CPU references of the fit phase at
+    niceness NICE: the closed-loop fit's loss terms and gradient at theta0
+    (float64, float64 with K2 valued in float32, float32, float32 with K2
+    valued in float64; the diffmode phase's four) and the attribution's
+    float64 transition fit; one `TOOL {...}` line."""
+    from tum_control_tpu_torch.tools import fit_tires_closedloop as cl
+    from tum_control_tpu_torch.tools import golden_attribution as ga
+    from tum_control_tpu_torch.tools import tire_fit
+
+    os.nice(nice)
+    ((_, spec),) = runs
+    cpu, f32, f64 = torch.device("cpu"), torch.float32, torch.float64
+    args = cl.parse_args(spec["cl_argv"] + ["--device", "cpu"])
+    refs = {}
+    for label, dtype, valued in (("cpu f64", f64, None), ("cpu f64, K2 valued in f32", f64, f32),
+                                 ("cpu f32", f32, None), ("cpu f32, K2 valued in f64", f32, f64)):
+        t0 = time.perf_counter()
+        with k2_valued(valued):
+            prob = cl.FitProblem(args, cpu, dtype)
+            loss, aux, g = prob.value_and_grad(prob.theta0)
+        refs[label] = dict(zip(FIT_TERMS, [float(loss)] + [float(v) for v in aux]),
+                           grad=g.double().numpy().tolist(), seconds=time.perf_counter() - t0)
+    ga_args = ga.parse_args(spec["attr_argv"] + ["--device", "cpu"])
+    t0 = time.perf_counter()
+    _, rms0, rms1, theta = ga.fit_tires(tire_fit.load_golden(ga_args.golden), ga_args.steps,
+                                        device=cpu)
+    attr = dict(theta=theta.tolist(), rms0=rms0, rms1=rms1, seconds=time.perf_counter() - t0)
+    print("TOOL " + json.dumps(dict(name="fit_cpu_holds", refs=refs, attribution=attr,
+                                    threads=torch.get_num_threads())), flush=True)
+    return 0
+
+
+def fit_card_child(runs, nice):
+    """`--fit-card-child RUNS NICE`: at niceness NICE, the ES's first
+    generation on the card as one batch of its members and as one run of
+    each; one `TOOL {...}` line with the lap statistics of each."""
+    from tum_control_tpu_torch.tools.fit_tires_es import Population
+
+    os.nice(nice)
+    ((_, spec),) = runs
+    pop = Population(spec["n"], torch.device("cuda"), torch.float32)
+    cand = np.array(spec["cand"])
+    batch = pop.lap_stats(cand)
+    singles = [pop.lap_stats(cand[p:p + 1]) for p in range(cand.shape[0])]
+    print("TOOL " + json.dumps(dict(name="fit_es_singles", batch=jsonable(batch),
+                                    singles=jsonable(singles))), flush=True)
+    return 0
+
+
+def start_fit_holds(fit):
+    """The fit phase's two hold children (fit_cpu_child, fit_card_child),
+    started at TOOLS_SIDE_NICE beside the CPU re-solves."""
+    argv = dict(FIT_RUNS)
+    spec = dict(cl_argv=fit_argv("fit_tires_closedloop", argv["fit_tires_closedloop"]),
+                attr_argv=fit_argv("golden_attribution", argv["golden_attribution"]))
+    es = dict(n=FIT_GOLDEN_STEPS, cand=fit["recs"]["fit_tires_es"]["generations"][0]["cand"])
+    return (start_tool_children([[("fit_cpu_holds", spec)]], TOOLS_SIDE_NICE,
+                                mode="--fit-cpu-child")
+            + start_tool_children([[("fit_es_singles", es)]], TOOLS_SIDE_NICE,
+                                  mode="--fit-card-child"))
+
+
+def fit_holds(fit, recs, smi):
+    """The fit phase's holds, from its children's records: the closed-loop
+    fit's first loss terms (TOL_FIT_TERMS of the CPU's float64) and first
+    gradient (finite; the nearest of the four CPU references within
+    TOL_GRAD per component, each reference's gap from float64 printed: a
+    bimodal float32 gradient shows there); the ES's first generation as one
+    batch against single-member runs (TOL_FIT_DEV), and that batch
+    against the ES's own; the attribution's theta (TOL_FIT_THETA)."""
+    by = {r["name"]: r for r in recs}
+    cpu, card = by["fit_cpu_holds"], by["fit_es_singles"]
+    refs = cpu["refs"]
+    it0 = fit["recs"]["fit_tires_closedloop"]["iterations"][0]
+    r64, r32 = refs["cpu f64"], refs["cpu f32"]
+    tol = {k: TOL_FIT_TERMS * abs(r64[k]) for k in ("rn", "rs")}
+    tol.update(okn=0.0, oks=0.0)
+    for k in ("tn", "ts"):
+        tol[k] = 2.0 * np.sqrt(r64[k]) * TOL_FIT_DEV + TOL_FIT_DEV ** 2
+    tol["loss"] = (2.0 * abs(r64["rn"] - 1.0) * tol["rn"] + 2.0 * abs(r64["rs"] - 1.0) * tol["rs"]
+                   + 0.3 * (tol["tn"] + tol["ts"]))
+    gap = {k: abs(it0[k] - r64[k]) for k in FIT_TERMS}
+    say(f"[fit/hold] {smi}: first loss terms, card f32 / cpu f64 (|gap|, bound; cpu f32's "
+        f"|gap|): " + "; ".join(f"{k} {it0[k]:.9e} / {r64[k]:.9e} ({gap[k]:.2e}, {tol[k]:.2e}; "
+                                f"{abs(r32[k] - r64[k]):.2e})" for k in FIT_TERMS))
+    check(all(gap[k] <= tol[k] for k in FIT_TERMS),
+          f"fit/hold: loss terms beyond their bounds from the CPU's float64: {gap}")
+    g32 = np.array(it0["grad"])
+    check(bool(np.isfinite(g32).all()) and float(np.abs(g32).max()) > 0,
+          f"fit/hold: card gradient {g32}")
+    g64 = np.array(r64["grad"])
+    fmt = lambda a: np.array2string(np.asarray(a), max_line_width=10**4,
+                                    formatter={"float_kind": lambda v: f"{v:.3e}"})
+    say(f"[fit/hold] first gradient card f32 {fmt(g32)}, cpu f64 {fmt(g64)}")
+    near = {}
+    for label, r in refs.items():
+        g = np.array(r["grad"])
+        near[label] = grad_gap(g32, g)
+        say(f"[fit/hold] reference {label} ({r['seconds']:.1f} s on {cpu['threads']} thread(s)):"
+            f" gap from cpu f64 {fmt(grad_gap(g, g64))}; the card's from it {fmt(near[label])}")
+    best = min(near, key=lambda label: near[label].max())
+    say(f"[fit/hold] nearest reference {best} (tol {TOL_GRAD:.0e}, floor {GRAD_FLOOR:.0e} of "
+        f"max |g|)")
+    check(bool((near[best] <= TOL_GRAD).all()),
+          f"fit/hold: card gradient per component {near[best]} from the nearest reference, {best}")
+
+    batch = np.array(card["batch"])                       # (ctrl, stat, P)
+    singles = np.concatenate([np.array(s) for s in card["singles"]], axis=2)
+    pop_gap = np.abs(batch - singles)
+    pop_rel = pop_gap / np.maximum(np.abs(singles), 1e-300)
+    say(f"[fit/hold] ES generation 0, pop {batch.shape[2]} as one batch vs single-member runs on "
+        f"the card (mean, max |lat_dev| in m, ok): largest |gap| nominal "
+        f"{fmt(pop_gap[0].max(axis=1))}, snmpc {fmt(pop_gap[1].max(axis=1))}; relative "
+        f"{fmt(pop_rel[0].max(axis=1))}, {fmt(pop_rel[1].max(axis=1))}; largest values "
+        f"{fmt(singles[:, :2].max(axis=2).ravel())}")
+    check(float(pop_gap[:, :2].max()) <= TOL_FIT_DEV and float(pop_gap[:, 2].max()) == 0.0,
+          f"fit/hold: population batch vs single runs {pop_gap.max(axis=2)} beyond "
+          f"{TOL_FIT_DEV:.0e} m or a solver status apart")
+    g0 = fit["recs"]["fit_tires_es"]["generations"][0]
+    own = np.array([[g0["xn"], g0["okn"]], [g0["xs"], g0["oks"]]])
+    rerun = float(np.abs(own - batch[:, 1:]).max())
+    say(f"[fit/hold] the batch in another process against the ES's own generation 0 (max "
+        f"|lat_dev|, ok): largest |gap| {rerun:.3e}")
+    check(rerun <= TOL_FIT_DEV, "fit/hold: the ES's generation 0 did not repeat on the card")
+
+    ta = np.array(fit["recs"]["golden_attribution"]["theta"])
+    tc = np.array(cpu["attribution"]["theta"])
+    say(f"[fit/hold] attribution theta card f64 {fmt(ta)}, cpu f64 {fmt(tc)}; max |gap| "
+        f"{np.abs(ta - tc).max():.3e}")
+    check(float(np.abs(ta - tc).max()) <= TOL_FIT_THETA,
+          f"fit/hold: attribution theta {np.abs(ta - tc).max():.3e} from the CPU's")
+    return dict(terms_gap=gap, nearest=best, grad_gap=near[best].max(),
+                population_gap=float(pop_gap.max()), population_rel=float(pop_rel.max()))
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs on a GPU", file=sys.stderr)
@@ -2449,6 +2858,12 @@ def main():
         return tools_child(json.loads(sys.argv[2]), int(sys.argv[3]))
     if sys.argv[1:2] == ["--eval-child"]:
         return eval_child(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--fit-child"]:
+        return fit_child(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--fit-cpu-child"]:
+        return fit_cpu_child(json.loads(sys.argv[2]), int(sys.argv[3]))
+    if sys.argv[1:2] == ["--fit-card-child"]:
+        return fit_card_child(json.loads(sys.argv[2]), int(sys.argv[3]))
     results, jobs = kernel_phase(dev)
     t = lap("kernel phase", t)
     if "--kernels-only" in sys.argv[1:]:
@@ -2475,6 +2890,8 @@ def main():
     t = lap("eval", t)
     holds = eval_holds(dev)
     t = lap("eval holds on the card", t)
+    fit = fit_phase(dev, smi.splitlines()[0])
+    t = lap("fit", t)
     for path in PATHS:
         run = runs[path]
         run["kernels_per_step"] = profile_window(
@@ -2490,6 +2907,7 @@ def main():
     # dump_qps's scipy re-solve on the host) run beside the CPU re-solves
     side = start_tool_children(TOOLS_SIDE, TOOLS_SIDE_NICE)
     try:
+        side += start_fit_holds(fit)
         for path in PATHS:
             run = runs[path]
             cpu_phase(path, run["sim"], move_carry(run["carry0"], dev, torch.float32),
@@ -2510,6 +2928,9 @@ def main():
         raise
     side_recs = finish_tool_children(side)
     t = lap("tools beside the CPU re-solves", t)
+    fit_recs = [r for r in side_recs if r["name"].startswith("fit_")]
+    side_recs = [r for r in side_recs if not r["name"].startswith("fit_")]
+    fit_holds(fit, fit_recs, smi.splitlines()[0])
     runs["diffmode"] = diffmode_phase(dev, smi.splitlines()[0])
     t = lap("diffmode", t)
     robust_utils_phase(dev)
@@ -2518,9 +2939,11 @@ def main():
                                       for path in ("nominal", "snmpc")}, side_recs)
     t = lap("tools", t)
     lap("whole script after the imports", t_start)
-    all_paths = list(PATHS) + list(TUNING) + list(ENTRY) + list(SERVE) + list(eval_launches)
+    all_paths = (list(PATHS) + list(TUNING) + list(ENTRY) + list(SERVE) + list(eval_launches)
+                 + list(fit["launches"]))
     per_path = {path: runs[path]["launches"] for path in all_paths if path in runs}
     per_path.update(eval_launches)
+    per_path.update(fit["launches"])
     check(set(results) == set(build.LAUNCHES), "kernel list and launch counters differ")
     kernels = []
     for name in build.LAUNCHES:

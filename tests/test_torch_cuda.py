@@ -15,6 +15,10 @@ main.py's closed loop): K1 and K4 at that shape, and 5 steps of the entry
 module's run_main through K1-K5. The tire gradient through K1-K5 (their
 backward the plain versions' VJP) against the CPU. Two tools: profile_step's
 per-stage kernel counts, and diag_precision --tf32 restoring the flags.
+K1 with one tire set per scenario (its tire table) against its plain
+version, against one shared-tire launch per member, and the table launch
+bitwise against the shared-tire launch on the same values; one step of the
+closed-loop tire fit under set_sync_debug_mode("error").
 No host sync: steps of each loop path (WMPC: a policy period) and one
 served cycle of the pipelined dispatcher under
 torch.cuda.set_sync_debug_mode("error"). The evaluation tools at a tiny T:
@@ -765,3 +769,107 @@ def test_sb3_converter_loads_on_the_card(dev, tmp_path):
     assert convert_sb3_checkpoint.main([str(tmp_path / "src"), str(tmp_path / "out")]) == \
         ["new_BO_F"]
     assert (tmp_path / "out" / "new_BO_F" / "rl_config.yaml").exists()
+
+
+def _tire_inputs(dev, B, N, seed):
+    """K1 inputs about lap states (as test_linearize_kernel_shapes draws
+    them) and B tire sets: the shipped set times exp(theta_b), theta_b ~
+    N(0, 0.05^2) per coefficient."""
+    from tum_control_tpu_torch.params import TireParams
+
+    rng = np.random.default_rng(seed)
+    traj = load_ref_trajectory(os.path.join(SimConfig().trajectory_path,
+                                            SimConfig().ref_traj_file), torch.float64, device="cpu")
+    x0, _ = batched_scenarios(traj, B, dtype=torch.float64)
+    X = x0.numpy()[:, None, :] + rng.normal(0, 1, (B, N, 8)) * [0.5, 0.5, 0.05, 1, 0.1, 0.05,
+                                                                0.02, 0.5]
+    XU = np.concatenate([X, rng.normal(0, 1, (B, N, 2)) * [1.0, 0.1]], axis=2)
+    tp0 = build_controller(MPCConfig(), SimConfig(), device=dev).tp
+    vals = np.exp(np.log(np.array(tp0[:8])) + rng.normal(0, 0.05, (B, 8)))
+    tp = TireParams(*torch.tensor(vals.T, dtype=torch.float32, device=dev).unbind(0), mu=tp0.mu)
+    return torch.tensor(XU, dtype=torch.float32, device=dev), tp, vals, tp0.mu
+
+
+@pytest.mark.parametrize("case", ["nominal", "snmpc_uph15"])
+def test_linearize_per_scenario_tires(dev, case):
+    """K1 with one tire set per scenario (its table) against its plain
+    version with (B,) tires, at the nominal shape (128 x 38, 3 substeps)
+    and at the SNMPC's at UPH 15 (128 x 188, one substep), to 2e-5 of each
+    output's max; one launch."""
+    from tum_control_tpu_torch.ops.kernels.linearize import LinearizeRollout
+
+    N, n_sub = (38, 3) if case == "nominal" else (15 * 11 + 23, 1)
+    XU, tp, _, _ = _tire_inputs(dev, 128, N, 12)
+    vp = build_controller(MPCConfig(), SimConfig(), device=dev).vp
+    lin = LinearizeRollout(vp, tp, 0.08, n_sub)
+    build.reset_launches()
+    F, J = lin(XU)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["linearize"] == 1
+    Fp, Jp = linearize_ref(XU, lin.step, 8)
+    for g, r in [(F, Fp)] + [(J[..., c], Jp[..., c]) for c in range(10)]:
+        err = float((g.double() - r.double()).abs().max())
+        assert err <= 2e-5 * float(r.abs().max()), err
+
+
+def test_linearize_per_scenario_tires_equal_member_launches(dev):
+    """K1 over a batch with one tire set per scenario equals one launch of
+    the shared-tire kernel per member with that member's set as floats, to
+    2e-5 of each output's max (the table's constants come from float32 tire
+    values, the argument block's from float64 ones)."""
+    from tum_control_tpu_torch.ops.kernels.linearize import LinearizeRollout
+    from tum_control_tpu_torch.params import TireParams
+
+    XU, tp, vals, mu = _tire_inputs(dev, 6, 38, 13)
+    vp = build_controller(MPCConfig(), SimConfig(), device=dev).vp
+    F, J = LinearizeRollout(vp, tp, 0.08, 3)(XU)
+    for b in range(6):
+        lin1 = LinearizeRollout(vp, TireParams(*vals[b], mu=mu), 0.08, 3)
+        assert lin1.table is None
+        F1, J1 = lin1(XU[b:b + 1].contiguous())
+        for g, r in ((F[b:b + 1], F1), (J[b:b + 1], J1)):
+            err = float((g.double() - r.double()).abs().max())
+            assert err <= 2e-5 * float(r.abs().max()), (b, err)
+
+
+def test_linearize_table_launch_equals_the_shared_launch(dev):
+    """The shared-tire launch (the argument block's tires, the controllers'
+    path) and the table launch whose every row holds that block's own tire
+    values give the same bits, at the nominal and the SNMPC shapes."""
+    from chip_smoke import TABLE_SLOTS
+    from tum_control_tpu_torch.ops.kernels.linearize import linearize_cuda
+
+    for ctrl_name, N in (("nominal", 38), ("snmpc", 88)):
+        ctrl = build_controller(MPCConfig(controller=ctrl_name), SimConfig(), device=dev)
+        lin = ctrl.lin_rollout if ctrl_name == "nominal" else ctrl.lin_roll8
+        XU, _, _, _ = _tire_inputs(dev, 16, N, 14)
+        rows = torch.tensor([list(lin.prm)[i] for i in TABLE_SLOTS], dtype=torch.float32,
+                            device=dev)
+        F1, J1 = linearize_cuda(XU, lin.prm, lin.n_sub)
+        for table in (rows[None], rows.expand(16, -1).contiguous()):
+            F2, J2 = linearize_cuda(XU, lin.prm, lin.n_sub, tires=table)
+            assert torch.equal(F1, F2) and torch.equal(J1, J2), ctrl_name
+
+
+def test_fit_step_makes_no_host_sync(dev, tmp_path):
+    """One step of the closed-loop tire fit (tires replaced from theta, the
+    closed-loop step, the sanitizer) under set_sync_debug_mode("error"), on
+    a golden pair the card writes."""
+    from chip_smoke import without_sync
+    from tum_control_tpu_torch.tools import fit_tires_closedloop as cl
+    from tum_control_tpu_torch.tools import tire_fit
+
+    paths = []
+    for name, cfg in (("nominal", MPCConfig()), ("snmpc", MPCConfig(**tire_fit.SNMPC))):
+        paths.append(str(tmp_path / name / "full_logs.npz"))
+        tire_fit.write_golden(paths[-1], cfg, 8, "EDGAR/pacejka_params_2023fit.yaml", dev,
+                              torch.float32, start=240)
+    args = cl.parse_args(["--golden", paths[0], "--golden-snmpc", paths[1], "--n-chunks", "2",
+                          "--chunk-len", "3", "--skip", "1"])
+    prob = cl.FitProblem(args, dev, torch.float32)
+    for sim, x0m, x0s, _ in prob.runs:
+        carry = sim.init_carry(x0m, x0s, key=0)
+        th = prob.theta0.clone().requires_grad_(True)
+        th, carry, _, _ = prob.step(sim, th, carry)
+        th, carry, d, st = without_sync(lambda: prob.step(sim, th, carry), "fit step", 1)
+        assert torch.isfinite(d).all()

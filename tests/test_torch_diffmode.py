@@ -9,7 +9,7 @@ On the card each wrapper launches its kernel inside
 the saved inputs. Here there is no card, so `_fake_kernels` sends every
 wrapper down that branch with a stand-in "kernel": the plain version run
 without autograd from what the kernel receives (K1: its packed parameter
-block), counted as a launch. Gradients through that route equal the plain
+block, and its tire table for tensor-valued tires), counted as a launch. Gradients through that route equal the plain
 route's to 1e-10 of max |g| (TOL_ROUTE: the same float64 operations,
 recomputed).
 
@@ -98,8 +98,8 @@ def _fake_kernels(monkeypatch):
         monkeypatch.setattr(mod, name, _counted(counter, plain))
     vp, mu = _vp(), _tp0().mu
 
-    def lin(XU, prm, n_sub, nx):  # the tire values and step size from the kernel's block
-        tp = TireParams(*list(prm)[14:22], mu=mu)
+    def lin(XU, prm, n_sub, nx, tires=None):  # the tires and step size the kernel receives
+        tp = TireParams(*(list(prm)[14:22] if tires is None else tires[0, :8]), mu=mu)
         step = linearize.make_step(vp, tp, list(prm)[26] * n_sub, n_sub)
         return linearize.linearize_ref(XU, step, nx)
 
@@ -179,16 +179,25 @@ def test_non_float_outputs_carry_no_gradient():
 
 
 def test_kernel_params_take_tire_values():
-    """K1's parameter block from tire tensors under autograd holds their
-    values: the block of the same floats, bit for bit."""
+    """K1 takes the values of tire tensors under autograd without reading
+    them on the host: its parameter block holds NaN in their slots (and in
+    the constants derived from them), its one-row tire table the values and
+    those constants, equal to the block of the same floats; every other
+    slot is that block's, bit for bit."""
     vp, tp0 = _vp(), _tp0()
     theta = torch.zeros(8, dtype=F64, requires_grad=True)
     tt = scaled_tire_params(tp0, theta)
     a = list(kernel_params(vp, tt, 0.08, 3))
     b = list(kernel_params(vp, TireParams(*(float(v.detach()) for v in tt[:8]), mu=tp0.mu),
                            0.08, 3))
-    assert a == b and len(a) == 29
-    assert LinearizeRollout(vp, tt, 0.08, 3).tires == tuple(tt[:8])
+    tire_slots = list(range(14, 22)) + [12, 13, 24, 25]  # table order: Bf..Er, Fmax, 1 / Fmax
+    assert len(a) == len(b) == 29
+    assert all(np.isnan(a[i]) for i in tire_slots)
+    assert [a[i] for i in range(29) if i not in tire_slots] == \
+        [b[i] for i in range(29) if i not in tire_slots]
+    lin = LinearizeRollout(vp, tt, 0.08, 3)
+    assert lin.tires == tuple(tt[:8]) and lin.table.shape == (1, 12)
+    np.testing.assert_allclose(lin.table[0].numpy(), [b[i] for i in tire_slots], rtol=1e-15)
 
 
 def test_gradient_matches_finite_differences():

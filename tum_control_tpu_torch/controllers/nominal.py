@@ -102,11 +102,12 @@ class NominalNMPC:
         u_z2[0, :] = HARD_Z2
 
         t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+        self.lin_rollout = LinearizeRollout(vp, tp, dt, N_SHOOTING_SUBSTEPS, self.nx)
         funcs = OCPFunctions(
             y_stage=y_stage,
             y_term=y_term,
             con_stage=con_stage,
-            lin_rollout=LinearizeRollout(vp, tp, dt, N_SHOOTING_SUBSTEPS, self.nx),
+            lin_rollout=self.lin_rollout,
             y_select=(0, 1, 2, 3),
             y_select_term=(0, 1, 2, 3),
             resid_stage=resid_lonlat if external else None,
@@ -121,6 +122,12 @@ class NominalNMPC:
         )
 
     # ------------------------------------------------------------------
+    def set_tires(self, tp: TireParams):
+        """Replace the prediction model's tires (floats, or tensors: 0-d, or
+        (B,) with one set per scenario) without rebuilding the controller."""
+        self.tp = tp
+        self.lin_rollout.set_tires(tp)
+
     def init_state(self, x0) -> RTIState:
         return self.engine.init_state(x0)
 

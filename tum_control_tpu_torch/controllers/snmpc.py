@@ -412,6 +412,13 @@ class StochasticNMPC:
         """x0 (B, 8) -> the stacked initial state (B, nx)."""
         return pce.fan_initial_state(x0, self.fan_offsets).flatten(-2)
 
+    def set_tires(self, tp: TireParams):
+        """Replace the prediction model's tires (floats, or tensors: 0-d, or
+        (B,) with one set per scenario, shared by its sample copies) without
+        rebuilding the controller."""
+        self.tp = tp
+        self.lin_roll8.set_tires(tp)
+
     def init_state(self, x0) -> RTIState:
         return self.engine.init_state(self._fan(x0))
 

@@ -1,7 +1,8 @@
 """Dynamic single-track (bicycle) vehicle model with Pacejka lateral tires.
 
 Port of tum_control_tpu/models/vehicle_stm.py. Functions take tensors with
-any leading batch shape and the state on the last axis:
+any leading batch shape and the state on the last axis, and tire parameters
+shared by the batch or one per scenario, the first leading axis:
 
   pred: x = [posx, posy, yaw, vlong, vlat, yawrate, delta_f, a], u = [jerk, ddelta]
   sim:  x = [posx, posy, yaw, vlong, vlat, yawrate, delta_f],    u = [a, ddelta]
@@ -30,6 +31,16 @@ def _scalar(fn_math, fn_torch, v):
     return fn_torch(v) if isinstance(v, torch.Tensor) else fn_math(v)
 
 
+def _per_scenario(v, like):
+    """A tire parameter as it broadcasts against `like` (..., the states'
+    leading axes): a (B,) tensor holds one value per scenario, the first
+    axis, and gains an axis for each further one (stages, sample copies);
+    floats and 0-d tensors pass as they are."""
+    if isinstance(v, torch.Tensor) and v.dim() == 1 and like.dim() > 1:
+        return v.reshape(v.shape + (1,) * (like.dim() - 1))
+    return v
+
+
 def _pacejka(alpha, B, C, D, E):
     """Pacejka 'magic formula' lateral force at constant tyre load."""
     Ba = B * alpha
@@ -37,7 +48,10 @@ def _pacejka(alpha, B, C, D, E):
 
 
 def lateral_forces(vlong, vlat, yawrate, delta_f, a, vp: VehicleParams, tp: TireParams):
-    """Shared force core -> (Fx_f, Fx_r, Fy_f, Fy_r, Faero, Fbank_x, Fbank_y)."""
+    """Shared force core -> (Fx_f, Fx_r, Fy_f, Fy_r, Faero, Fbank_x, Fbank_y).
+    Tire parameters are floats, 0-d tensors or (B,) tensors, one per
+    scenario (the first axis of the states)."""
+    tp = type(tp)(*(_per_scenario(v, vlong) for v in tp))
     # rolling resistance (v in km/h); the 1e-24 keeps the sqrt tangent finite
     # at standstill
     v_kmh = torch.sqrt(vlong**2 + vlat**2 + 1e-24) * 3.6

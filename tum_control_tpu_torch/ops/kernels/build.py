@@ -40,6 +40,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # stream as c_void_p); each returns the cudaError_t of its launch as int
 SIGNATURES = {
     "linearize": {"linearize_f32": [_P, _P, _P, _I, _P, _I, _P],
+                  "linearize_tires_f32": [_P, _P, _P, _I, _P, _P, _I, _I, _P],
                   "linearize_launch_plan": [_I, _P]},
     "condense": {"condense_f32": [_P] * 6 + [_I] * 4 + [_P],
                  "condense_from_f32": [_P] * 7 + [_I] * 6 + [_P],

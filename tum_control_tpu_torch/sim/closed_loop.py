@@ -98,6 +98,13 @@ class ClosedLoopSim:
         self.dist_deriv, self.dist_se = dist_deriv, dist_se
 
     # ------------------------------------------------------------------
+    def set_tires(self, tp):
+        """Replace the tires of the plant and the controller: floats, or
+        tensors, 0-d or (B,) with one set per scenario (a population of tire
+        parameters as one batch; tools/fit_tires_es.py)."""
+        self.tp_sim = tp
+        self.controller.set_tires(tp)
+
     def init_carry(self, x0_mpc, x0_sim, key=None) -> SimCarry:
         """x0_mpc (B, 8), x0_sim (B, 7); `key` a torch.Generator or an int seed."""
         if x0_mpc.dim() != 2 or x0_sim.dim() != 2:
