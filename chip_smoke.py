@@ -38,6 +38,11 @@ Phases (any failure raises and the script exits non-zero):
      path's kernels (and no other) were launched, solver health and finite
      logs; prints solves/s and |lat_dev| p50/p99 (WMPC: the weight switches
      and the action histogram);
+  3b. `bench`: the port's headline entry, tum_control_tpu_torch/bench.py's
+     main in-process at B = 128 and cut depth (BENCH_SETTLE, BENCH_STEPS):
+     its last stdout line (bench.py's four keys, finite), solver-ok >= 0.99
+     on the nominal NMPC, the SNMPC and the R2NMPC, K1-K6 launched; prints
+     the three solves/s and the single-stream ms beside the card;
   4. the two tuning loops, each with the counters reset just before and
      read just after: `ppo`, PPO training of the WMPC policy (RLEnv over
      the nominal NMPC on the stacked Monteblanco + Modena laps, one lap per
@@ -71,7 +76,11 @@ Phases (any failure raises and the script exits non-zero):
      the controls of both runs against run_from's from the same carry
      (TOL_SERVE; the pipelined run's at the step each cycle applied); `distributed`, initialize_distributed with NCCL at world
      size 1, the sharded nominal loop (DIST_B, DIST_STEPS; the all-reduced
-     mean |lat_dev| against the local one) and scaling_report at one card;
+     mean |lat_dev| against the local one) and scaling_report at one card,
+     then in the same NCCL group `dryrun`, dryrun_multichip(1) over the six
+     controller compositions (finite means, K1-K6), and `dryrun/entry`,
+     entry()'s nominal step against the CPU's float64 and float32 steps
+     (TOL_U);
   7. after all loops (a profiler session slows every later step's host
      time), a torch.profiler window of PROFILE_STEPS steps of each loop, of
      one env step, one objective chunk and `main`, and the profiler's
@@ -141,6 +150,12 @@ Phases (any failure raises and the script exits non-zero):
      of the CPU's four references (TOL_GRAD), the ES's first generation as one
      batch against single-member runs on the card (TOL_FIT_DEV), the
      attribution's theta against the CPU's float64 fit (TOL_FIT_THETA);
+ 11c. `qp`: QP_B random QPs of general rows only (n_id = 0) at the nominal
+     widths, float32 on the card, through solve_soft_qp (`qp/newton`: K3
+     and K5 each step) and solve_soft_qp_ipm(n_id=0) (`qp/ipm`: K3 each
+     iteration, K3 + K5 each polish step, no K4), each against the CPU's
+     float64 solve (TOL_QP_W, TOL_QP_OBJ; the IPM to LATE_FACTOR times the
+     CPU float32 solve's own distance);
  12. prints the seconds each phase took, one {"kernels": [...]} line
      (launches per path, the evaluation tools' as "eval/<tool>", the fit
      tools' and the goldens' as "fit/<tool>", and per
@@ -259,7 +274,43 @@ PATH_KERNELS = {
     "distributed": NOMINAL_KERNELS,
     "diffmode": NOMINAL_KERNELS,
     "robust_utils": (),
+    # bench.py's three controllers; the n_id = 0 QPs run no fused IPM iteration
+    # (JAX's rule: only n_id = nz reaches the kernel); the six compositions of
+    # the dry run include the SNMPC; the entry step is one nominal solve
+    "bench": ("linearize", "condense", "condense_from", "cholesky", "chol_solve",
+              "ipm_iteration"),
+    "qp/newton": ("cholesky", "chol_solve"),
+    "qp/ipm": ("cholesky", "chol_solve"),
+    "dryrun": ("linearize", "condense", "condense_from", "cholesky", "chol_solve",
+               "ipm_iteration"),
+    "dryrun/entry": NOMINAL_KERNELS,
 }
+# the benchmark entry, the solver API's QPs and the dry run, each a path of its own
+API = ("bench", "qp/newton", "qp/ipm", "dryrun", "dryrun/entry")
+# the port's headline entry, tum_control_tpu_torch/bench.py, in-process after
+# the loops (phase 3b): bench.py's protocol at full width (B = 128, N = 38,
+# the nominal NMPC, then the SNMPC and the R2NMPC) and cut depth:
+# BENCH_SETTLE of its 100 settle steps, BENCH_STEPS of its 1,000 timed steps
+# (the single stream's too; the SNMPC's and R2NMPC's min(steps, 300))
+BENCH_B, BENCH_SETTLE, BENCH_STEPS = 128, 20, 100
+# the qp hold (after the fit phase): QP_B random QPs of general rows only
+# (n_id = 0) at the nominal widths (nz = NZ, NCG rows), tests/test_soft_qp.py's
+# draw with each row of G scaled to unit expected norm (condensed rows' scale)
+# and no hard row, float32 on the card against the CPU's float64 solve of the
+# same QPs. solve_soft_qp (QP_NEWTON_ITERS Newton steps from w = 0) on the
+# L2-penalised QPs (z1 = 0): from zero the semismooth Newton solve does not
+# converge in 15 steps where L1 kinks are active (its exact line search then
+# amplifies rounding: JAX's own solve moves by O(0.1) when its start moves by
+# 1e-9), and on these it lands on the minimizer; its w within TOL_QP_W of max
+# |w| (the CPU's float32 solve lies within 4.4e-7) and its objective within
+# TOL_QP_OBJ of max(1, |objective|). solve_soft_qp_ipm(n_id=0) (30 iterations
+# and 2 polish steps, the defaults) on the L1 + L2 QPs: float32 resolves its
+# point to ~1e-2 of max |w| there (the CPU's float32 solve lies within 2.4e-2,
+# median 1.6e-3; its objective within 6.5e-4), so w and the objective are
+# held, over the batch, to the larger of TOL_QP_W / TOL_QP_OBJ and
+# LATE_FACTOR times the CPU float32 solve's own distance from float64
+QP_B, QP_NEWTON_ITERS = 128, 15
+TOL_QP_W, TOL_QP_OBJ = 1e-5, 1e-5
 # the tuning loops at full width, cut in depth (phase 4)
 TRACKS_PPO = ("monteblanco", "modena")
 TRACKS_BO = ("modena", "monteblanco")
@@ -1934,11 +1985,184 @@ def serve_phase(dev, smi):
     return dict(launches=launches, steps=2 * (SERVE_CYCLES + 1), results=res)
 
 
+def bench_phase(dev, smi):
+    """`bench`: tum_control_tpu_torch/bench.py's main in-process at BENCH_B
+    scenarios and cut depth (its SETTLE set to BENCH_SETTLE), the counters
+    reset just before and read just after. Holds its last stdout line
+    (bench.py's four keys, finite), solver-ok >= 0.99 on all three
+    controllers and K1-K6 launched; prints the three solves/s and the
+    single-stream ms beside the card's name and power limit."""
+    import io
+
+    from tum_control_tpu_torch import bench
+    from tum_control_tpu_torch.ops.kernels import build
+
+    settle, bench.SETTLE = bench.SETTLE, BENCH_SETTLE
+    out = io.StringIO()
+    try:
+        build.reset_launches()
+        with contextlib.redirect_stdout(out):
+            res = bench.main([str(BENCH_B), str(BENCH_STEPS), "--device", str(dev)])
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+    finally:
+        bench.SETTLE = settle
+    lines = out.getvalue().strip().splitlines()
+    say(f"[bench] launches: {json.dumps(launches)}")
+    check_launches("bench", launches)
+    last = json.loads(lines[-1])
+    say(f"[bench] last stdout line: {lines[-1]}")
+    check(set(last) == {"metric", "value", "unit", "vs_baseline"}, f"bench: keys {sorted(last)}")
+    check(last["metric"] == "nmpc_solves_per_sec" and last["unit"] == "solve/s",
+          f"bench: line {last}")
+    check(all(np.isfinite([last["value"], last["vs_baseline"]])) and last["value"] > 0,
+          f"bench: values {last}")
+    m = res["measure"]
+    oks = {"nominal": m["ok"], **{k: v["ok"] for k, v in m["controllers"].items()}}
+    for name, ok in oks.items():
+        check(ok >= 0.99, f"bench/{name}: solver ok fraction {ok} < 0.99")
+    for name, lg in m["logs"].items():
+        check(bool(torch.isfinite(lg.lat_dev).all() and torch.isfinite(lg.simU).all()),
+              f"bench/{name}: non-finite log")
+    c = m["controllers"]
+    say(f"[bench] {smi}: B={BENCH_B}, settle {BENCH_SETTLE}, timed {BENCH_STEPS} steps: nominal "
+        f"{m['solves_per_sec']:.1f} solves/s ({m['seconds']:.3f} s), snmpc "
+        f"{c['snmpc']['solves_per_sec']:.1f} ({c['snmpc']['seconds']:.3f} s), rnmpc "
+        f"{c['rnmpc']['solves_per_sec']:.1f} ({c['rnmpc']['seconds']:.3f} s); single-stream "
+        f"{m['single_ms']:.3f} ms/step; ok {json.dumps(oks)}; |lat_dev| p50 / p99 "
+        f"{m['lat_p50']:.4f} / {m['lat_p99']:.4f} m")
+    steps = (BENCH_SETTLE + 2 + BENCH_STEPS + 2 * BENCH_STEPS
+             + 4 * min(BENCH_STEPS, bench.MAX_CONTROLLER_STEPS))
+    return dict(launches=launches, steps=steps, line=last,
+                figures={k: v for k, v in m.items() if k not in ("logs", "stderr")})
+
+
+def general_qp(rng, batch, nz=NZ, ncg=NCG, l1=True):
+    """float64 numpy (H0, g0, G, c0, lb, ub, z1, z2) of `batch` QPs of general
+    rows only: tests/test_soft_qp.py's draw without hard rows, each row of G
+    scaled by 1 / sqrt(nz); z1 = 0 (L2 penalties only) unless `l1`."""
+    A = rng.standard_normal((batch, nz + 4, nz))
+    H0 = np.einsum("bki,bkj->bij", A, A) / nz + 0.1 * np.eye(nz)
+    g0 = rng.standard_normal((batch, nz))
+    G = rng.standard_normal((batch, ncg, nz)) / np.sqrt(nz)
+    c0 = rng.standard_normal((batch, ncg))
+    lb = -rng.uniform(0.1, 1.0, (batch, ncg))
+    ub = rng.uniform(0.1, 1.0, (batch, ncg))
+    z1 = rng.uniform(10.0, 200.0, (batch, ncg)) if l1 else np.zeros((batch, ncg))
+    z2 = rng.uniform(1.0, 20.0, (batch, ncg))
+    return (H0, g0, G, c0, lb, ub, z1, z2)
+
+
+def qp_hold(dev):
+    """The soft-QP API on QPs of general rows only (n_id = 0), QP_B of them
+    at the nominal widths, float32 on the card, each solver with the counters
+    reset just before and read just after: `qp/newton`, solve_soft_qp
+    (QP_NEWTON_ITERS steps: K3 and K5 each step), `qp/ipm`,
+    solve_soft_qp_ipm(n_id=0) (K3 each of its 30 iterations, the plain
+    iteration, K3 + K5 each of its 2 polish steps; never K4). Each against
+    the CPU's float64 solve of the same QPs (module constants TOL_QP_W,
+    TOL_QP_OBJ): w over max |w| and the float64 objective at the card's
+    point over max(1, |objective|), both over the batch."""
+    from tum_control_tpu_torch.ops.ipm import solve_soft_qp_ipm
+    from tum_control_tpu_torch.ops.kernels import build
+    from tum_control_tpu_torch.ops.soft_qp import CondensedQP, objective, solve_soft_qp
+
+    f32, f64 = torch.float32, torch.float64
+    rng = np.random.default_rng(13)
+    runs = {}
+    for path, l1, solve, counts in (
+            ("qp/newton", False, lambda q: solve_soft_qp(q, n_iters=QP_NEWTON_ITERS),
+             dict(cholesky=QP_NEWTON_ITERS, chol_solve=QP_NEWTON_ITERS)),
+            ("qp/ipm", True, lambda q: solve_soft_qp_ipm(q, n_id=0), dict(cholesky=32, chol_solve=2))):
+        arrays = general_qp(rng, QP_B, l1=l1)
+        qp = lambda device, dtype: CondensedQP(*(torch.tensor(a, dtype=dtype, device=device)
+                                                  for a in arrays))
+        card = qp(dev, f32)
+        build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w, kkt = solve(card)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(build.LAUNCHES)
+        say(f"[{path}] launches: {json.dumps(launches)}")
+        check_launches(path, launches)
+        for name, n in counts.items():
+            check(launches[name] == n, f"{path}: {launches[name]} {name} launches, not {n}")
+        check(bool(torch.isfinite(w).all() and torch.isfinite(kkt).all()
+                   and torch.isfinite(objective(card, w)).all()), f"{path}: non-finite result")
+        q64 = qp("cpu", f64)
+        w64 = solve(q64)[0]
+        w32 = solve(qp("cpu", f32))[0]
+        o64 = objective(q64, w64)
+        scale_w, scale_o = w64.abs().amax(1), o64.abs().clamp(min=1.0)
+        gap_w = lambda x: float(((x.double().cpu() - w64).abs().amax(1) / scale_w).max())
+        gap_o = lambda x: float(((objective(q64, x.double().cpu()) - o64).abs() / scale_o).max())
+        card_w, card_o, floor_w, floor_o = gap_w(w), gap_o(w), gap_w(w32), gap_o(w32)
+        tol_w, tol_o = TOL_QP_W, TOL_QP_OBJ
+        if path == "qp/ipm":
+            tol_w, tol_o = max(tol_w, LATE_FACTOR * floor_w), max(tol_o, LATE_FACTOR * floor_o)
+        say(f"[{path}] B={QP_B}, nz={NZ}, {NCG} general rows: {ms:.3f} ms on the card (host "
+            f"clock, synchronized); card - cpu f64: w {card_w:.3e} of max |w| (tol {tol_w:.3e}), "
+            f"objective {card_o:.3e} (tol {tol_o:.3e}); cpu f32 - cpu f64: w {floor_w:.3e}, "
+            f"objective {floor_o:.3e}")
+        check(card_w <= tol_w, f"{path}: w {card_w:.3e} from the CPU's float64 > {tol_w:.3e}")
+        check(card_o <= tol_o, f"{path}: objective {card_o:.3e} from float64 > {tol_o:.3e}")
+        runs[path] = dict(launches=launches, steps=1, ms=ms, err_w=card_w, err_obj=card_o)
+    return runs
+
+
+def dryrun_hold(dev):
+    """Inside the distributed phase's process group (NCCL, world size 1):
+    `dryrun`, tum_control_tpu_torch/dryrun.py's dryrun_multichip(1) over the
+    six controller compositions (each mean |lat_dev| finite, K1-K6
+    launched), and `dryrun/entry`, entry()'s one nominal step on the card
+    (K1-K5) against the CPU's float64 step: u0 within TOL_U of max |u0| (one
+    cold-start step on the opening straight, where the steering rate lies
+    within a few times float32's floor of itself) and, per input, within
+    TOL_U of |u0_i| of the CPU's float32 step; the status 0. Each with the
+    counters reset just before and read just after."""
+    from tum_control_tpu_torch.dryrun import dryrun_multichip, entry
+    from tum_control_tpu_torch.ops.kernels import build
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    means = dryrun_multichip(1, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    say(f"[dryrun] six compositions, 2 steps each at B = 2, {time.perf_counter() - t0:.1f} s; "
+        f"launches {json.dumps(launches)}; mean |lat_dev| {json.dumps(means)}")
+    check_launches("dryrun", launches)
+    check(len(means) == 6 and all(np.isfinite(list(means.values()))), f"dryrun: means {means}")
+
+    fn, args = entry(device=dev)
+    build.reset_launches()
+    u0, _, stats = fn(*args)
+    torch.cuda.synchronize()
+    e_launches = dict(build.LAUNCHES)
+    say(f"[dryrun/entry] launches {json.dumps(e_launches)}")
+    check_launches("dryrun/entry", e_launches)
+    refs = {}
+    for dtype in (torch.float64, torch.float32):
+        fn_c, args_c = entry(device="cpu", dtype=dtype)
+        refs[dtype] = fn_c(*args_c)[0].double()
+    u, u64, u32 = u0.double().cpu(), refs[torch.float64], refs[torch.float32]
+    gap64 = float((u - u64).abs().max() / u64.abs().max())
+    gap32 = float(((u - u32).abs() / u64.abs()).max())
+    say(f"[dryrun/entry] u0 card {u.tolist()}, cpu f64 {u64.tolist()}: card - cpu f64 "
+        f"{gap64:.3e} of max |u0|, card - cpu f32 {gap32:.3e} of |u0_i| (tol {TOL_U})")
+    check(gap64 <= TOL_U and gap32 <= TOL_U, "dryrun/entry: the card's step is off the CPU's")
+    check(float(stats[0, 4]) == 0.0, f"dryrun/entry: status {float(stats[0, 4])}")
+    return {"dryrun": dict(launches=launches, steps=6 * 2, means=means),
+            "dryrun/entry": dict(launches=e_launches, steps=1, gap64=gap64, gap32=gap32)}
+
+
 def distributed_phase(dev):
     """initialize_distributed with NCCL at world size 1 on a free localhost
     port; the sharded nominal loop (its all-reduced mean |lat_dev| against
     the local reduction) and scaling_report at one card; the counters reset
-    just before the loop and read just after the report."""
+    just before the loop and read just after the report. Then, in the same
+    process group, the dry run's holds (dryrun_hold), returned as `holds`."""
     import socket
 
     import torch.distributed as dist
@@ -1961,6 +2185,7 @@ def distributed_phase(dev):
         run = sharded_run(sim, traj, DIST_B, DIST_STEPS, device=d)
         rows = scaling_report(sim, traj, device=d, **SCALING)
         launches = dict(build.LAUNCHES)
+        holds = dryrun_hold(d)
     finally:
         dist.destroy_process_group()
     say(f"[distributed] launches over {DIST_STEPS} sharded steps and 2 x {SCALING['steps']} "
@@ -1976,7 +2201,8 @@ def distributed_phase(dev):
     check(len(rows) == 1 and rows[0]["devices"] == 1 and rows[0]["efficiency"] == 1.0,
           f"distributed: scaling rows {rows}")
     say(f"[distributed] scaling_report {json.dumps(rows)}")
-    return dict(launches=launches, steps=DIST_STEPS + 2 * SCALING["steps"], rows=rows)
+    return dict(launches=launches, steps=DIST_STEPS + 2 * SCALING["steps"], rows=rows,
+                holds=holds)
 
 
 @contextlib.contextmanager
@@ -2876,6 +3102,8 @@ def main():
     for path in PATHS:
         runs[path] = loop_phase(dev, path)
         t = lap(f"loop/{path}", t)
+    runs["bench"] = bench_phase(dev, smi.splitlines()[0])
+    t = lap("bench", t)
     runs["ppo"] = ppo_phase(dev)
     t = lap("ppo", t)
     runs["bo"] = bo_phase(dev)
@@ -2885,13 +3113,16 @@ def main():
     runs["serve"] = serve_phase(dev, smi.splitlines()[0])
     t = lap("serve", t)
     runs["distributed"] = distributed_phase(dev)
-    t = lap("distributed", t)
+    runs.update(runs["distributed"].pop("holds"))
+    t = lap("distributed and dryrun", t)
     eval_launches = eval_phase(smi.splitlines()[0])
     t = lap("eval", t)
     holds = eval_holds(dev)
     t = lap("eval holds on the card", t)
     fit = fit_phase(dev, smi.splitlines()[0])
     t = lap("fit", t)
+    runs.update(qp_hold(dev))
+    t = lap("qp", t)
     for path in PATHS:
         run = runs[path]
         run["kernels_per_step"] = profile_window(
@@ -2939,8 +3170,8 @@ def main():
                                       for path in ("nominal", "snmpc")}, side_recs)
     t = lap("tools", t)
     lap("whole script after the imports", t_start)
-    all_paths = (list(PATHS) + list(TUNING) + list(ENTRY) + list(SERVE) + list(eval_launches)
-                 + list(fit["launches"]))
+    all_paths = (list(PATHS) + list(TUNING) + list(ENTRY) + list(SERVE) + list(API)
+                 + list(eval_launches) + list(fit["launches"]))
     per_path = {path: runs[path]["launches"] for path in all_paths if path in runs}
     per_path.update(eval_launches)
     per_path.update(fit["launches"])

@@ -277,3 +277,22 @@ def test_loaders_need_cuda_unless_given_a_device(monkeypatch, loader):
     with pytest.raises(RuntimeError, match="CUDA"):
         LOADERS[loader]()
     assert LOADERS[loader](device="cpu").device.type == "cpu"
+
+
+
+def test_fit_tires_needs_cuda_unless_given_a_device(monkeypatch):
+    """tools/golden_attribution.py::fit_tires, a library function that makes
+    its own tensors, resolves its device as the loaders do: it raises
+    without a CUDA device unless the caller names one."""
+    from tum_control_tpu_torch.tools import golden_attribution
+
+    rng = np.random.default_rng(5)
+    n = 4
+    golden = {"simU": 0.01 * rng.standard_normal((n, 2)),
+              "CiLX": np.tile([0.0, 0.0, 0.1, 20.0, 0.1, 0.02, 0.01], (n + 1, 1)),
+              "MPC_SimX": np.zeros((n + 1, 8))}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        golden_attribution.fit_tires(golden, 1)
+    _, rms0, rms1, theta = golden_attribution.fit_tires(golden, 1, device="cpu")
+    assert theta.shape == (8,) and np.isfinite([rms0, rms1]).all()

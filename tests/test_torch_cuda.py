@@ -873,3 +873,59 @@ def test_fit_step_makes_no_host_sync(dev, tmp_path):
         th, carry, _, _ = prob.step(sim, th, carry)
         th, carry, d, st = without_sync(lambda: prob.step(sim, th, carry), "fit step", 1)
         assert torch.isfinite(d).all()
+
+
+def test_general_row_qp_launches_k3_and_k5_not_k4(dev):
+    """QPs of general rows only (n_id = 0), chip_smoke.qp_hold: the IPM runs
+    its plain iteration (JAX's rule sends only n_id = nz to the fused
+    kernel), so K3 factors each iteration's normal matrix, K3 + K5 each
+    polish step, and K4 never launches; the Newton solve launches K3 and K5
+    each step; both held against the CPU's float64 solve."""
+    from chip_smoke import QP_NEWTON_ITERS, qp_hold
+
+    runs = qp_hold(dev)
+    nonzero = lambda path: {k: v for k, v in runs[path]["launches"].items() if v}
+    assert nonzero("qp/ipm") == dict(cholesky=32, chol_solve=2)
+    assert nonzero("qp/newton") == dict(cholesky=QP_NEWTON_ITERS, chol_solve=QP_NEWTON_ITERS)
+
+
+def test_dyn_step_linearization_makes_no_host_sync(dev):
+    """The engine's jacfwd-of-dyn_step branch (vmapped over every stage of
+    every scenario, the stage index from torch.arange on the card) inside one
+    solve_full under set_sync_debug_mode("error"), and its A, B, xi against
+    K1's (the same step, differentiated by the kernel)."""
+    import copy
+
+    from tum_control_tpu_torch.controllers.nominal import N_SHOOTING_SUBSTEPS
+    from tum_control_tpu_torch.models.integrators import rk4_multistep
+    from tum_control_tpu_torch.models.vehicle_stm import pred_ode
+    from tum_control_tpu_torch.track.planner import planner_emulator
+
+    sim, _, _, traj, _ = build_simulation(SimConfig(sim_mode=0), MPCConfig())
+    ctrl = sim.controller
+    eng = copy.copy(ctrl.engine)
+    eng.funcs = eng.funcs._replace(lin_rollout=None, dyn_step=lambda k, x, u: rk4_multistep(
+        lambda a, b: pred_ode(a, b, ctrl.vp, ctrl.tp), x, u, ctrl.dt, N_SHOOTING_SUBSTEPS))
+    x0, _ = batched_scenarios(traj, 8, dtype=torch.float32, device=dev)
+    st = ctrl.init_state(x0)
+    st = st._replace(U=0.1 * torch.ones_like(st.U))
+    _, win = planner_emulator(traj, x0[:, :2], sim.Tp, sim.N + 1)
+    yref, yref_e = ctrl.make_yref(win)
+    eng.solve_full(st, x0, yref, yref_e)
+    u0, _, stats, _ = without_sync(lambda: eng.solve_full(st, x0, yref, yref_e), "dyn_step", 1)
+    assert (stats.status == 0).all() and torch.isfinite(u0).all()
+    for a, b in zip(eng._linearize(st), ctrl.engine._linearize(st)):
+        _close(a, b, 1e-4)
+
+
+def test_bench_measure_launches_every_path_kernel(dev):
+    """bench.py's protocol at B = 128 (a few steps): the nominal NMPC and
+    the R2NMPC launch K1-K5, the SNMPC K1, K3-K6; every controller solves."""
+    from tum_control_tpu_torch import bench
+
+    build.reset_launches()
+    res = bench.measure(128, 3, 2, device=dev)
+    assert {k for k, v in build.LAUNCHES.items() if v} == {
+        "linearize", "condense", "condense_from", "cholesky", "chol_solve", "ipm_iteration"}
+    assert res["ok"] >= 0.99 and all(c["ok"] >= 0.99 for c in res["controllers"].values())
+    assert res["solves_per_sec"] > 0 and res["single_ms"] > 0

@@ -46,14 +46,14 @@ def test_con_products_and_polish():
     rng = np.random.default_rng(21)
     w = rng.standard_normal((B, nz))
     y = rng.standard_normal((B, ncg + nz))
-    _assert_close(tqp.con_mul(qt, T(w)), jax.vmap(lambda q, a: jqp.con_mul(q, a, nz))(qj, w))
-    _assert_close(tqp.con_tmul(qt, T(y)), jax.vmap(lambda q, a: jqp.con_tmul(q, a, nz))(qj, y))
-    _assert_close(tqp.con_normal(qt, T(np.abs(y))),
+    _assert_close(tqp.con_mul(qt, T(w), nz), jax.vmap(lambda q, a: jqp.con_mul(q, a, nz))(qj, w))
+    _assert_close(tqp.con_tmul(qt, T(y), nz), jax.vmap(lambda q, a: jqp.con_tmul(q, a, nz))(qj, y))
+    _assert_close(tqp.con_normal(qt, T(np.abs(y)), nz),
                   jax.vmap(lambda q, a: jqp.con_normal(q, a, nz))(qj, np.abs(y)))
     # two semismooth steps from a random point: a third can flip a row's
     # active side on the ~1e-9 direction differences (cond ~1e7 factors)
     # and then legitimately land elsewhere
-    w_t, kkt_t = tqp.newton_polish(qt, T(w), n_iters=2)
+    w_t, kkt_t = tqp.newton_polish(qt, T(w), n_iters=2, n_id=nz)
     w_j, kkt_j = jax.vmap(lambda q, a: jqp.newton_polish(q, a, n_iters=2, n_id=nz))(qj, w)
     _assert_close(w_t, w_j, atol=1e-7, msg="w")
     # the line search can land a row exactly on its bound, where the KKT
@@ -75,12 +75,12 @@ def test_solve_soft_qp_ipm(warm):
         wv = [10.0 ** rng.uniform(-5, 6, (B, ncg + nz)) for _ in range(6)]
         out_j = jax.vmap(lambda q, *w: jipm.solve_soft_qp_ipm(
             q, warm=jipm.IPMWarm(*w), n_id=nz, **kw))(qj, *wv)
-        out_t = tipm.solve_soft_qp_ipm(qt, warm=tipm.IPMWarm(*map(T, wv)), **kw)
+        out_t = tipm.solve_soft_qp_ipm(qt, warm=tipm.IPMWarm(*map(T, wv)), n_id=nz, **kw)
         for name, a, b in zip(tipm.IPMWarm._fields, out_t[2], out_j[2]):
             _assert_close(a, b, msg=name)
     else:
         out_j = jax.vmap(lambda q: jipm.solve_soft_qp_ipm(q, n_id=nz, **kw))(qj)
-        out_t = tipm.solve_soft_qp_ipm(qt, **kw)
+        out_t = tipm.solve_soft_qp_ipm(qt, n_id=nz, **kw)
     _assert_close(out_t[0], out_j[0], msg="w")
     _assert_close(out_t[1], out_j[1], atol=1e-7, msg="kkt")
     np.testing.assert_array_equal(out_t[-1].iters.numpy(), np.asarray(out_j[-1].iters))

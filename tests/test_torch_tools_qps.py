@@ -105,7 +105,7 @@ def test_port_ipm_on_the_committed_qp_anchor():
     qps = CondensedQP(*[torch.as_tensor(a[f]) for f in dump_qps.FIELDS])
     assert int(a["n_id"]) == qps.g0.shape[1] == 76 and qps.g0.shape[0] >= 100
     w_sp = a["w_scipy"]
-    w = solve_soft_qp_ipm(qps, n_iters=60, n_polish=3)[0].numpy()
+    w = solve_soft_qp_ipm(qps, n_iters=60, n_polish=3, n_id=76)[0].numpy()
     assert np.abs(w - w_sp).max() < 1e-4, np.abs(w - w_sp).max()
-    w6 = solve_soft_qp_ipm(qps, n_iters=6, n_polish=1)[0].numpy()
+    w6 = solve_soft_qp_ipm(qps, n_iters=6, n_polish=1, n_id=76)[0].numpy()
     assert np.abs(w6[:, :2] - w_sp[:, :2]).max() < 0.15

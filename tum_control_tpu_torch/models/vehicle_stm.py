@@ -112,6 +112,16 @@ def pred_ode(x, u, vp: VehicleParams, tp: TireParams):
     return torch.stack([d[0], d[1], d[2], d[3], d[4], d[5], u[..., 1], u[..., 0]], dim=-1)
 
 
+def pred_ode_tuple(x, u, vp: VehicleParams, tp: TireParams):
+    """Structure-of-arrays form of `pred_ode`: x a tuple of 8 per-variable
+    tensors, u a tuple of 2 ([jerk, steering_rate]); returns a tuple of 8
+    derivatives, from the same force core (`_body_derivatives`)."""
+    _, _, yaw, vlong, vlat, yawrate, delta_f, a = x
+    jerk, ddelta = u
+    d = _body_derivatives(yaw, vlong, vlat, yawrate, delta_f, a, vp, tp)
+    return (d[0], d[1], d[2], d[3], d[4], d[5], ddelta, jerk)
+
+
 def sim_ode(x, u, vp: VehicleParams, tp: TireParams):
     """7-state plant ODE; u = [a, steering_rate]."""
     d = _body_derivatives(

@@ -68,10 +68,14 @@ def ipm_plan(nz: int, ncg: int) -> IpmPlan:
     return IpmPlan(npad, ld, THREADS, parts, rows_per_part, 4 * floats, 255)
 
 
+BIG_THRESH = 1e10  # row sides with |bound| above this are treated as absent
+HARD_THRESH = 1e6  # z2 at or above this marks a hard row
+
+
 def masks_of(lb, ub, z2):
-    act_u = ub < 1e10
-    act_l = lb > -1e10
-    soft = z2 < 1e6
+    act_u = ub < BIG_THRESH
+    act_l = lb > -BIG_THRESH
+    soft = z2 < HARD_THRESH
     return act_u, act_l, act_u & soft, act_l & soft
 
 
@@ -101,21 +105,30 @@ def sigma_of(su, sl, pu, pl, lam_u, lam_l, mu_u, mu_l, z1, z2, act_u, act_l, s_u
     return sig_u + sig_l
 
 
-def iteration_ref(L, G, rw, c0, lb, ub, z1, z2, nt, carry, gamma_ftb: float = 0.99):
+def iteration_ref(L, G, rw, c0, lb, ub, z1, z2, nt, carry, gamma_ftb: float = 0.99,
+                  n_id: int = None):
     """One Mehrotra iteration from the Cholesky factor L (B,nz,nz) of the
     current normal matrix and the stationarity residual
-    rw = H0 w + g0 + [G; I]'(lam_u - lam_l) (B,nz)."""
+    rw = H0 w + g0 + [G; I]'(lam_u - lam_l) (B,nz). `n_id`: the identity
+    rows after G, nz (the kernel's layout; also when None) or 0 (general
+    rows only, ops/ipm.py's n_id = 0 path, which no kernel takes)."""
     w, Gw, su, sl, pu, pl, lam_u, lam_l, mu_u, mu_l = carry
-    ncg = G.shape[1]
+    ncg, nz = G.shape[1], G.shape[2]
+    n_id = nz if n_id is None else n_id
+    if n_id not in (0, nz) or c0.shape[1] != ncg + n_id:
+        raise ValueError(f"iteration_ref: {c0.shape[1]} rows are not {ncg} general rows and "
+                         f"n_id = {n_id} identity rows (0 or nz = {nz})")
     act_u, act_l, s_u, s_l = masks_of(lb, ub, z2)
     zero = torch.zeros_like(c0)
     inf = torch.full_like(c0, float("inf"))
 
     def con_mul(x):
-        return torch.cat([torch.matmul(G, x[..., None])[..., 0], x], dim=1)
+        Gx = torch.matmul(G, x[..., None])[..., 0]
+        return torch.cat([Gx, x], dim=1) if n_id else Gx
 
     def con_tmul(y):
-        return torch.matmul(y[:, None, :ncg], G)[:, 0] + y[:, ncg:]
+        Gty = torch.matmul(y[:, None, :ncg], G)[:, 0]
+        return Gty + y[:, ncg:] if n_id else Gty
 
     def total_gap(lu, pu_, ll, pl_, mu, su_, ml, sl_):
         return torch.sum(

@@ -4,7 +4,9 @@
 One `solve_full` per control step, for B scenarios at once:
   1. linearize the shooting dynamics at the stored iterate (X, U): the
      controller's fused rollout + sensitivity function (K1), else its
-     `dyn_jac`,
+     `dyn_jac`, else forward-mode AD of its one-stage `dyn_step` (vmapped
+     over every stage of every scenario: how a user's own OCP reaches the
+     engine),
   2. condense the state deviations onto w = vec(dU) (K2),
   3. assemble the Gauss-Newton QP: from the Jacobians of the reference-
      dependent residuals `resid_stage` / `resid_term` (the EXTERNAL cost,
@@ -70,6 +72,10 @@ class OCPFunctions(NamedTuple):
         (W, We, con_lb, con_ub, con_z1, con_z2, u_lb, u_ub, u_z1, u_z2) of
         this solve, each unbatched (static) or batched (a QPMods field)
     expand_dx: (aux, w (B, nz)) -> dX (B, N+1, nx); required with build_qp
+    dyn_step : (k, x (nx,), u (nu,)) -> x_next (nx,), the shooting step of
+        one stage, unbatched (k the stage index, a 0-d integer tensor): the
+        JAX package's required `dyn_step`, optional here and linearized by
+        `torch.func.jacfwd` when neither lin_rollout nor dyn_jac is given
     """
 
     y_stage: Callable
@@ -86,6 +92,7 @@ class OCPFunctions(NamedTuple):
     con_jac: Callable = None
     build_qp: Callable = None
     expand_dx: Callable = None
+    dyn_step: Callable = None
 
 
 class QPMods(NamedTuple):
@@ -177,8 +184,25 @@ class RTIEngine:
             XU = torch.cat([state.X[:, :-1], state.U], dim=2)
             F, J = f.lin_rollout(XU)
             return J[..., :nx].contiguous(), J[..., nx:].contiguous(), F - state.X[:, 1:]
-        F, A, Bm = f.dyn_jac(state.X[:, :-1], state.U)
-        return A, Bm, F - state.X[:, 1:]
+        if f.dyn_jac is not None:
+            F, A, Bm = f.dyn_jac(state.X[:, :-1], state.U)
+            return A, Bm, F - state.X[:, 1:]
+        if f.dyn_step is None:
+            raise ValueError("OCPFunctions needs lin_rollout, dyn_jac or dyn_step")
+        B, N = state.U.shape[:2]
+
+        def step_xu(k, xu):
+            x_next = f.dyn_step(k, xu[:nx], xu[nx:])
+            return x_next, x_next
+
+        # stage k of scenario b is row b N + k
+        XU = torch.cat([state.X[:, :-1], state.U], dim=2).reshape(B * N, -1)
+        ks = torch.arange(N, device=XU.device).repeat(B)
+        J, F = torch.func.vmap(torch.func.jacfwd(step_xu, argnums=1, has_aux=True))(ks, XU)
+        # under vmap, jacfwd's tangents through a 0-d element of a float32 row
+        # (x[0] ** 2, say) come out float64: the Jacobian takes the rows' type
+        J, F = J.to(XU.dtype).reshape(B, N, nx, -1), F.reshape(B, N, nx)
+        return J[..., :nx].contiguous(), J[..., nx:].contiguous(), F - state.X[:, 1:]
 
     def _zero_A(self, x):
         """The A_lin of a path that never forms the stage sensitivities: zeros
@@ -334,7 +358,8 @@ class RTIEngine:
         for _ in range(self.sqp_iters):
             qp, e, Gam, A_lin = self._build_qp(it_state, x0, yref, yref_e, mods)
             w, kkt, warm_out, ipm_stats = solve_soft_qp_ipm(
-                qp, n_iters=self.newton_iters, n_polish=1, warm=it_state.warm, want_stats=True
+                qp, n_iters=self.newton_iters, n_polish=1, warm=it_state.warm, n_id=self.nz,
+                want_stats=True,
             )
             qp_iter_max = torch.maximum(qp_iter_max, ipm_stats.iters)
             gap_last = ipm_stats.gap

@@ -7,9 +7,15 @@ strictly convex piecewise-quadratic program
     min_w  0.5 w'H0 w + g0'w + sum_i psi_i(G_i w + c0_i),
     psi_i(v) = z1_i max(0, v - ub_i) + 0.5 z2_i max(0, v - ub_i)^2 + (same for lb_i - v).
 
-The constraint system is always the ncg general rows `G` followed by nz
-identity rows over w (the condensed input-box rows; the JAX package's
-`n_id = nz`), which are handled analytically, never stored.
+The constraint system is the ncg general rows `G` followed by `n_id`
+identity rows over w, which are handled analytically, never stored: the
+RTI engine's QPs end with the nz condensed input-box rows (`n_id = nz`,
+which every caller in the engine passes); `n_id = 0`, the default as in
+the JAX package, means general rows only.
+
+On the card the polish factors with K3 and solves with K5
+(ops/kernels/chol.py) whatever `n_id` is, as the JAX package routes its
+polish through `chol_factor_packed` / `chol_apply_packed`.
 
 The residual and gradient mat-vecs must be exact float32 (the TPU's bf16
 passes there caused a multi-metre closed-loop weave); on the card a float32
@@ -30,16 +36,16 @@ N_BISECT = 45
 
 class CondensedQP(NamedTuple):
     """Batched soft QP data; c0/lb/ub/z1/z2 cover the general rows first,
-    the nz identity rows last."""
+    the n_id identity rows last (n_id is passed to the functions)."""
 
     H0: torch.Tensor   # (B, nz, nz) positive-definite base Hessian
     g0: torch.Tensor   # (B, nz)
     G: torch.Tensor    # (B, ncg, nz) general constraint rows
-    c0: torch.Tensor   # (B, ncg + nz) constraint values at w = 0
-    lb: torch.Tensor   # (B, ncg + nz)
-    ub: torch.Tensor   # (B, ncg + nz)
-    z1: torch.Tensor   # (B, ncg + nz) linear slack penalty
-    z2: torch.Tensor   # (B, ncg + nz) quadratic slack penalty
+    c0: torch.Tensor   # (B, ncg + n_id) constraint values at w = 0
+    lb: torch.Tensor   # (B, ncg + n_id)
+    ub: torch.Tensor   # (B, ncg + n_id)
+    z1: torch.Tensor   # (B, ncg + n_id) linear slack penalty
+    z2: torch.Tensor   # (B, ncg + n_id) quadratic slack penalty
 
 
 def mv(A, x):
@@ -52,22 +58,25 @@ def mtv(A, y):
     return torch.matmul(y[..., None, :], A)[..., 0, :]
 
 
-def con_mul(qp: CondensedQP, w):
-    """Full constraint-Jacobian product [G; I] w."""
-    return torch.cat([mv(qp.G, w), w], dim=-1)
+def con_mul(qp: CondensedQP, w, n_id: int = 0):
+    """Full constraint-Jacobian product [G; I] w (the identity block when
+    n_id > 0)."""
+    Gw = mv(qp.G, w)
+    return torch.cat([Gw, w], dim=-1) if n_id else Gw
 
 
-def con_tmul(qp: CondensedQP, y):
+def con_tmul(qp: CondensedQP, y, n_id: int = 0):
     """Transpose product [G; I]' y."""
     ncg = qp.G.shape[-2]
-    return mtv(qp.G, y[..., :ncg]) + y[..., ncg:]
+    Gty = mtv(qp.G, y[..., :ncg])
+    return Gty + y[..., ncg:] if n_id else Gty
 
 
-def con_normal(qp: CondensedQP, d):
+def con_normal(qp: CondensedQP, d, n_id: int = 0):
     """[G; I]' diag(d) [G; I] without forming the identity block."""
     ncg = qp.G.shape[-2]
     H = torch.matmul(qp.G.transpose(-1, -2) * d[..., None, :ncg], qp.G)
-    return H + torch.diag_embed(d[..., ncg:])
+    return H + torch.diag_embed(d[..., ncg:]) if n_id else H
 
 
 def _slack_gamma(v, lb, ub, z1, z2):
@@ -78,7 +87,28 @@ def _slack_gamma(v, lb, ub, z1, z2):
     return torch.where(du > 0, z1 + z2 * du, zero) - torch.where(dl > 0, z1 + z2 * dl, zero)
 
 
-def newton_polish(qp: CondensedQP, w0, n_iters: int = 15, reg: float = 1e-9):
+def _penalty(qp: CondensedQP, v):
+    """sum_i psi_i(v_i) per scenario, (B,)."""
+    du = v - qp.ub
+    dl = qp.lb - v
+    zero = torch.zeros_like(v)
+    pu = torch.where(du > 0, qp.z1 * du + 0.5 * qp.z2 * du * du, zero)
+    plo = torch.where(dl > 0, qp.z1 * dl + 0.5 * qp.z2 * dl * dl, zero)
+    return torch.sum(pu + plo, dim=-1)
+
+
+def objective(qp: CondensedQP, w, n_id: int = 0):
+    """The soft QP's objective at w (B, nz), (B,)."""
+    return (0.5 * torch.sum(w * mv(qp.H0, w), dim=-1) + torch.sum(qp.g0 * w, dim=-1)
+            + _penalty(qp, con_mul(qp, w, n_id) + qp.c0))
+
+
+def solve_soft_qp(qp: CondensedQP, n_iters: int = 15, reg: float = 1e-9, n_id: int = 0):
+    """Semismooth-Newton solve from w = 0; returns (w*, kkt residual inf-norm)."""
+    return newton_polish(qp, torch.zeros_like(qp.g0), n_iters=n_iters, reg=reg, n_id=n_id)
+
+
+def newton_polish(qp: CondensedQP, w0, n_iters: int = 15, reg: float = 1e-9, n_id: int = 0):
     """Semismooth Newton with an exact (bracket + bisection) line search from
     w0 (B, nz); returns (w (B, nz), kkt residual inf-norm (B,))."""
     nz = qp.H0.shape[-1]
@@ -88,18 +118,18 @@ def newton_polish(qp: CondensedQP, w0, n_iters: int = 15, reg: float = 1e-9):
     bounds_k = tuple(t[:, None, :] for t in bounds)  # broadcast over line-search points
     w = w0
     for _ in range(n_iters):
-        v = con_mul(qp, w) + qp.c0
+        v = con_mul(qp, w, n_id) + qp.c0
         du = v - qp.ub
         dl = qp.lb - v
         d = torch.where((du > 0) | (dl > 0), qp.z2, torch.zeros_like(v))
         hwg = mv(qp.H0, w) + qp.g0
-        grad = hwg + con_tmul(qp, _slack_gamma(v, *bounds))
-        H = qp.H0 + con_normal(qp, d) + reg * eye
+        grad = hwg + con_tmul(qp, _slack_gamma(v, *bounds), n_id)
+        H = qp.H0 + con_normal(qp, d, n_id) + reg * eye
         p = -chol_solve(cholesky(H), grad)
 
         # phi(alpha) = objective(w + alpha p) is convex piecewise quadratic:
         # phi' is nondecreasing piecewise linear; find its root
-        s = con_mul(qp, p)
+        s = con_mul(qp, p, n_id)
         q1 = torch.sum(hwg * p, dim=-1)
         q2 = torch.sum(p * mv(qp.H0, p), dim=-1)
 
@@ -121,6 +151,7 @@ def newton_polish(qp: CondensedQP, w0, n_iters: int = 15, reg: float = 1e-9):
         w_new = w + alpha[:, None] * p
         w = torch.where(torch.all(torch.isfinite(w_new), dim=1, keepdim=True), w_new, w)
 
-    v = con_mul(qp, w) + qp.c0
-    kkt = torch.amax(torch.abs(mv(qp.H0, w) + qp.g0 + con_tmul(qp, _slack_gamma(v, *bounds))), dim=-1)
+    v = con_mul(qp, w, n_id) + qp.c0
+    gamma = _slack_gamma(v, *bounds)
+    kkt = torch.amax(torch.abs(mv(qp.H0, w) + qp.g0 + con_tmul(qp, gamma, n_id)), dim=-1)
     return w, kkt

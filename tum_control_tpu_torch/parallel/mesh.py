@@ -1,10 +1,56 @@
-"""Scenario batches (port of tum_control_tpu/parallel/mesh.py::batched_scenarios;
-a batch is sharded across processes, one per card, by parallel/distributed.py
-in place of the JAX package's device mesh)."""
+"""Scenario batches and their sharding (port of
+tum_control_tpu/parallel/mesh.py).
+
+A batch is sharded across processes, one per card (parallel/distributed.py):
+`make_mesh` is a `torch.distributed` DeviceMesh over the initialized process
+group, with the JAX mesh's axis names, and `shard_batch` takes this rank's
+rows of the leading (scenario) axis, the rows a JAX device holds under
+`NamedSharding(mesh, P("batch"))`.
+"""
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
+
+
+def make_mesh(n_devices: int = None, axis_names=("batch",)):
+    """A one-axis DeviceMesh over the ranks of the initialized process group
+    (parallel/distributed.py::initialize_distributed): `n_devices` (default:
+    the world size, the only count it takes), its axis named `axis_names`;
+    on cuda under NCCL, else on the CPU."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("make_mesh needs an initialized process group "
+                           "(parallel/distributed.py::initialize_distributed)")
+    world = dist.get_world_size()
+    n = n_devices or world
+    if n != world:
+        raise ValueError(f"a mesh of {n} devices in a process group of {world}: "
+                         "one process per device")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return DeviceMesh(device_type, torch.arange(n), mesh_dim_names=tuple(axis_names))
+
+
+def shard_batch(mesh, tree, axis: str = "batch"):
+    """This rank's rows of the leading axis of every tensor in a nest (tuples,
+    NamedTuples, lists, dicts): rows [r b, (r + 1) b) with r the rank's
+    coordinate on `axis` and b = rows / the axis' size; anything else
+    passes through."""
+    r = mesh.get_local_rank(axis)
+    n = mesh.size(mesh.mesh_dim_names.index(axis))
+
+    def rows(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        if t.shape[0] % n:
+            raise ValueError(f"{t.shape[0]} rows do not split over {n} devices")
+        b = t.shape[0] // n
+        return t[r * b:(r + 1) * b]
+
+    return tree_map(rows, tree)
 
 
 def batched_scenarios(traj, batch: int, dtype=None, vp=None, device=None):

@@ -126,7 +126,7 @@ def capture(n_qps, dtype, device, every=10):
             window = planner_emulator(traj, carry.pose, sim.Tp, sim.N + 1)[1]
             yref, yref_e = ctrl.make_yref(window)
             qp = eng._build_qp(carry.ctrl_state, carry.x_est, yref, yref_e)[0]
-            w_ipm = solve_soft_qp_ipm(qp, n_iters=eng.newton_iters, n_polish=1)[0]
+            w_ipm = solve_soft_qp_ipm(qp, n_iters=eng.newton_iters, n_polish=1, n_id=eng.nz)[0]
             qps.append([host(f) for f in qp])
             ours.append(host(w_ipm))
         carry = sim.step(carry, z7, z7)[0]

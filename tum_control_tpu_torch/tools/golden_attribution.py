@@ -29,6 +29,7 @@ import time
 import numpy as np
 import torch
 
+from tum_control_tpu_torch.device import resolve_device
 from tum_control_tpu_torch.learn.adam import adam_init, adam_update
 from tum_control_tpu_torch.models.integrators import rk4_multistep
 from tum_control_tpu_torch.models.vehicle_stm import sim_ode
@@ -60,11 +61,13 @@ def parse_args(argv=None):
     return tire_fit.resolve_goldens(ap.parse_args(argv))
 
 
-def fit_tires(d: dict, n_steps: int = 3000, lr: float = 0.02, device="cpu"):
+def fit_tires(d: dict, n_steps: int = 3000, lr: float = 0.02, device=None):
     """Fit [Bf, Cf, Df, Ef, Br, Cr, Dr, Er] (log-multipliers theta on the
-    default TireParams) to the golden's one-step transitions in float64;
+    default TireParams) to the golden's one-step transitions in float64 on
+    `device` (device.resolve_device: cuda unless the caller names one);
     residuals on [vlong, vlat, yawrate] over Ts. Returns (TireParams of
     floats, rms0, rms1, theta (8,) numpy)."""
+    device = resolve_device(device)
     f64 = torch.float64
     t = lambda a: torch.as_tensor(a, dtype=f64, device=device)
     n = d["simU"].shape[0]

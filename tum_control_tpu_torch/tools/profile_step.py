@@ -57,7 +57,7 @@ def stages(s):
         ("planner", lambda: s.window(s.x0m[:, :2])),
         ("build_qp", lambda: eng._build_qp(s.init, s.x0e, s.yref, s.yref_e)[0]),
         ("ipm+polish", lambda: solve_soft_qp_ipm(s.qp, n_iters=eng.newton_iters, n_polish=1,
-                                                 warm=s.init.warm)[0]),
+                                                 warm=s.init.warm, n_id=eng.nz)[0]),
         ("solve (all)", lambda: eng.solve(s.init, s.x0e, s.yref, s.yref_e)[0]),
         ("plant+estimator", plant_est),
         ("full step", lambda: sim.step(s.carry, s.z7, s.z7)[0].x_sim),

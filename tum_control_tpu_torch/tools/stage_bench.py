@@ -79,7 +79,8 @@ def chained_stages(s):
         return st._replace(U=st.U + 1e-9 * qp.g0.reshape(s.batch, N, nu))
 
     def ipm_step(wm):
-        return solve_soft_qp_ipm(s.qp, n_iters=eng.newton_iters, n_polish=1, warm=wm)[2]
+        return solve_soft_qp_ipm(s.qp, n_iters=eng.newton_iters, n_polish=1, warm=wm,
+                                 n_id=eng.nz)[2]
 
     def solve_step(st):
         return eng.solve(st, s.x0e, s.yref, s.yref_e)[1]

@@ -13,6 +13,7 @@ whose scenarios drive different laps (the RL env, the BO objective).
 from __future__ import annotations
 
 import json
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -125,3 +126,8 @@ def initial_state(path: str, idx_ref_start: int):
     x0_sim = np.array([px, py, yaw, v, 0.0, 0.0, 0.0])
     return x0_mpc, x0_sim
 
+
+def resolve_trajectory_paths(trajectory_path: str, ref_traj_file: str, track_file: str):
+    """(reference-trajectory path, track path) inside `trajectory_path`."""
+    return (os.path.join(trajectory_path, ref_traj_file),
+            os.path.join(trajectory_path, track_file))
