@@ -1,0 +1,2 @@
+"""The benchmark of the PyTorch/CUDA port: `python3 benchmark/run.py`
+(README.md in this folder)."""
