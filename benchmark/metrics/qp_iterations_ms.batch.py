@@ -1,0 +1,20 @@
+"""qp_iterations_ms.batch: Host milliseconds a closed-loop step in the interior-point
+iterations: every `tc.qp.iteration` span of the step (qp_iters of them: the
+normal matrix, K3, the residual, K4). The median over the steps that the
+port's tracer recorded in the run (tum_control_tpu_torch/utils/trace.py).
+
+Reads the traced run's record (driver_*.py) and the port's tracer; returns
+None where it finds nothing to read (a port without the tracer or the span)."""
+UNIT = "ms"
+LAYER = "controller and RTI engine (controllers/*, ops/rti.py, ops/ipm.py, ops/soft_qp.py)"
+MOVES = "device_solves_per_s"
+
+
+def read(rec):
+    if rec["mode"] != "batch":
+        return None
+    try:
+        from tum_control_tpu_torch.utils import trace
+    except ImportError:
+        return None
+    return trace.median_ms(trace.snapshot(), "tc.step", ("tc.qp.iteration",))

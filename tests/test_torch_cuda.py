@@ -23,7 +23,8 @@ No host sync: steps of each loop path (WMPC: a policy period) and one
 served cycle of the pipelined dispatcher under
 torch.cuda.set_sync_debug_mode("error"). The evaluation tools at a tiny T:
 each runs on the card and launches its path's kernels (and no other); the
-acc24 propagation against the CPU's float64 one; the SB3 converter.
+acc24 propagation against the CPU's float64 one; the SB3 converter. The
+host spans (utils/trace.py) inside a region captured in a CUDA graph.
 
 Marked `cuda`; without a CUDA device every test skips. On a GPU machine:
 
@@ -929,3 +930,37 @@ def test_bench_measure_launches_every_path_kernel(dev):
         "linearize", "condense", "condense_from", "cholesky", "chol_solve", "ipm_iteration"}
     assert res["ok"] >= 0.99 and all(c["ok"] >= 0.99 for c in res["controllers"].values())
     assert res["solves_per_sec"] > 0 and res["single_ms"] > 0
+
+
+def test_spans_are_capture_safe(dev):
+    """A span (utils/trace.py) inside a region captured into a CUDA graph
+    does not break the capture: the replay equals the eager result, the span
+    around the replay fires and the one inside the replayed region does not."""
+    from tum_control_tpu_torch.utils import trace
+
+    def region(x):
+        with trace.span("tc.test.region"):
+            return torch.tanh(x) * 2.0 + x.sum(dim=1, keepdim=True)
+
+    x = torch.randn(128, 80, device=dev)
+    eager = region(x)
+    static = torch.zeros_like(x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            region(static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with trace.span("tc.test.capture"):
+        with torch.cuda.graph(graph):
+            out = region(static)
+    trace.reset()
+    static.copy_(x)
+    with trace.span("tc.test.replay"):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    snap = trace.snapshot()
+    assert [root for root, *_ in snap["records"]] == ["tc.test.replay"]
+    assert [name for name, *_ in snap["spans"][0][1]] == ["tc.test.replay"]

@@ -66,6 +66,7 @@ from tum_control_tpu_torch.api import build_simulation
 from tum_control_tpu_torch.config import MPCConfig, SimConfig
 from tum_control_tpu_torch.device import resolve_device
 from tum_control_tpu_torch.utils.rt_runtime import RealtimeExecutor
+from tum_control_tpu_torch.utils.trace import span
 
 N_FETCH = 3        # fetcher pool size
 PACKED = 9         # [u0, u1, cost, time, sqp_iter, qp_iter, status, lat_dev, vel_dev]
@@ -102,14 +103,17 @@ def _record(ex, t0, ns, p):
 
 def run_synchronous(sim, carry, ex, cycles: int):
     """Each cycle: wait for the deadline, step, copy the packed vector to the
-    host, record."""
+    host, record. A cycle is the span `tc.cycle` (its index the cycle's),
+    the wait for the packed vector the span `tc.cycle.fetch` inside it."""
     zeros = torch.zeros_like(carry.x_sim)
-    for _ in range(cycles):
-        t0 = ex.begin_cycle()
-        t_solve = time.perf_counter_ns()
-        carry, packed = packed_step(sim, carry, zeros)
-        p = packed.cpu().numpy()  # waits for the step
-        _record(ex, t0, time.perf_counter_ns() - t_solve, p)
+    for i in range(cycles):
+        with span("tc.cycle", index=i):
+            t0 = ex.begin_cycle()
+            t_solve = time.perf_counter_ns()
+            carry, packed = packed_step(sim, carry, zeros)
+            with span("tc.cycle.fetch"):
+                p = packed.cpu().numpy()  # waits for the step
+            _record(ex, t0, time.perf_counter_ns() - t_solve, p)
 
 
 def _read_steal_s():

@@ -33,6 +33,7 @@ from tum_control_tpu_torch.ops.kernels.ipm_iter import (  # noqa: F401 (the JAX 
     BIG_THRESH, HARD_THRESH, fused_iteration, iteration_ref, masks_of, sigma_of,
 )
 from tum_control_tpu_torch.ops.soft_qp import CondensedQP, con_normal, mtv, mv, newton_polish
+from tum_control_tpu_torch.utils.trace import span
 
 WARM_MIN = 1e-3
 WARM_MAX = 1e5
@@ -65,7 +66,8 @@ def init_warm(batch: int, nc: int, dtype=None, device=None) -> IPMWarm:
 
 def _iterations(qp: CondensedQP, nt, carry, n_iters: int, gamma_ftb: float, n_id: int):
     """n_iters x {sigma -> H -> K3 -> rw -> K4 (n_id = nz) or the plain
-    iteration (n_id = 0)}; returns (carry, unconverged (B, n_iters))."""
+    iteration (n_id = 0)}, each the span `tc.qp.iteration`; returns (carry,
+    unconverged (B, n_iters))."""
     H0, g0, G, c0, lb, ub, z1, z2 = qp
     ncg = G.shape[1]
     act_u, act_l, s_u, s_l = masks_of(lb, ub, z2)
@@ -74,16 +76,18 @@ def _iterations(qp: CondensedQP, nt, carry, n_iters: int, gamma_ftb: float, n_id
 
     uncs = []
     for _ in range(n_iters):
-        L = cholesky(H0 + con_normal(qp, sig, n_id) + 1e-11 * eye)
-        lam_d = carry[6] - carry[7]
-        rw = mv(H0, carry[0]) + g0 + mtv(G, lam_d[:, :ncg])
-        if n_id:
-            rw = rw + lam_d[:, ncg:]
-            carry, sig, unc = fused_iteration(L, G, rw, c0, lb, ub, z1, z2, nt, carry, gamma_ftb)
-        else:
-            carry, sig, unc = iteration_ref(L, G, rw, c0, lb, ub, z1, z2, nt, carry, gamma_ftb,
-                                            n_id=0)
-        uncs.append(unc)
+        with span("tc.qp.iteration"):
+            L = cholesky(H0 + con_normal(qp, sig, n_id) + 1e-11 * eye)
+            lam_d = carry[6] - carry[7]
+            rw = mv(H0, carry[0]) + g0 + mtv(G, lam_d[:, :ncg])
+            if n_id:
+                rw = rw + lam_d[:, ncg:]
+                carry, sig, unc = fused_iteration(L, G, rw, c0, lb, ub, z1, z2, nt, carry,
+                                                  gamma_ftb)
+            else:
+                carry, sig, unc = iteration_ref(L, G, rw, c0, lb, ub, z1, z2, nt, carry,
+                                                gamma_ftb, n_id=0)
+            uncs.append(unc)
     return carry, torch.stack(uncs, dim=1)
 
 
@@ -133,7 +137,8 @@ def solve_soft_qp_ipm(qp: CondensedQP, n_iters: int = 30, n_polish: int = 2,
     carry, uncs = _iterations(qp, nt, carry, n_iters, gamma_ftb, n_id)
 
     # exact finish: semismooth-Newton steps from the IPM point
-    w, kkt = newton_polish(qp, carry[0], n_iters=n_polish, n_id=n_id)
+    with span("tc.qp.polish"):
+        w, kkt = newton_polish(qp, carry[0], n_iters=n_polish, n_id=n_id)
     if want_stats:
         _, _, su_f, sl_f, pu_f, pl_f, lu_f, ll_f, mu_f, ml_f = carry
         gap_f = torch.sum(

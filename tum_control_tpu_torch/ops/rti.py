@@ -36,6 +36,7 @@ from tum_control_tpu_torch.device import device_constant
 from tum_control_tpu_torch.ops.ipm import IPMWarm, init_warm, solve_soft_qp_ipm
 from tum_control_tpu_torch.ops.kernels.condense import condense
 from tum_control_tpu_torch.ops.soft_qp import CondensedQP, mtv
+from tum_control_tpu_torch.utils.trace import span
 
 BIG = 1e12  # stands in for +/- inf bounds (inf would produce inf*0 NaNs)
 
@@ -233,23 +234,35 @@ class RTIEngine:
         return H0, g0
 
     def _build_qp(self, state: RTIState, x0, yref, yref_e, mods: QPMods = None):
-        """(qp, e, Gam, A_lin); on the build_qp path e holds its aux and Gam is None."""
+        """(qp, e, Gam, A_lin); on the build_qp path e holds its aux and Gam is None.
+        Spans: `tc.rti.linearize`, `tc.rti.condense` (a `lin_condense` hook:
+        this span alone) and `tc.rti.assemble`, or `tc.rti.build_qp`."""
+        f = self.funcs
+        merged = self._merged(mods)
+        if f.build_qp is not None:
+            with span("tc.rti.build_qp"):
+                qp, aux = f.build_qp(state.X, state.U, x0, yref, yref_e, merged)
+            return qp, aux, None, self._zero_A(x0)
+        d0 = x0 - state.X[:, 0]
+        if f.lin_condense is not None:
+            with span("tc.rti.condense"):
+                e, Gam = f.lin_condense(state.X, state.U, d0)
+            A = self._zero_A(x0)
+        else:
+            with span("tc.rti.linearize"):
+                A, Bm, xi = self._linearize(state)
+            with span("tc.rti.condense"):
+                e, Gam = condense(A, Bm, xi.contiguous(), d0.contiguous())
+        with span("tc.rti.assemble"):
+            return self._assemble(state, x0, yref, yref_e, merged, e, Gam), e, Gam, A
+
+    def _assemble(self, state: RTIState, x0, yref, yref_e, merged, e, Gam) -> CondensedQP:
+        """The Gauss-Newton QP (cost, then the constraint rows) from the
+        condensed dynamics e, Gam."""
         f = self.funcs
         N, nx, nz = self.N, self.nx, self.nz
         B = x0.shape[0]
-        merged = self._merged(mods)
-        if f.build_qp is not None:
-            qp, aux = f.build_qp(state.X, state.U, x0, yref, yref_e, merged)
-            return qp, aux, None, self._zero_A(x0)
         W, We, con_lb, con_ub, con_z1, con_z2, u_lb, u_ub, u_z1, u_z2 = merged
-        d0 = x0 - state.X[:, 0]
-        if f.lin_condense is not None:
-            e, Gam = f.lin_condense(state.X, state.U, d0)
-            A = self._zero_A(x0)
-        else:
-            A, Bm, xi = self._linearize(state)
-            e, Gam = condense(A, Bm, xi.contiguous(), d0.contiguous())
-
         if f.y_select is not None and f.resid_stage is None:
             # --- Gauss-Newton cost, selection-structured: y = [x[sel], u] ---
             # index tensors built once (a Python list index is a host sync)
@@ -313,10 +326,9 @@ class RTIEngine:
         c0_c = C + torch.sum(Jc * e[:, :, None, :], dim=-1)
         G = torch.matmul(Jc, Gam).reshape(B, -1, nz)
         c0 = torch.cat([c0_c.reshape(B, -1), state.U.reshape(B, -1)], dim=1)
-        qp = CondensedQP(H0=H0, g0=g0, G=G.contiguous(), c0=c0, lb=qp_rows(con_lb, u_lb, B),
-                         ub=qp_rows(con_ub, u_ub, B), z1=qp_rows(con_z1, u_z1, B),
-                         z2=qp_rows(con_z2, u_z2, B))
-        return qp, e, Gam, A
+        return CondensedQP(H0=H0, g0=g0, G=G.contiguous(), c0=c0, lb=qp_rows(con_lb, u_lb, B),
+                           ub=qp_rows(con_ub, u_ub, B), z1=qp_rows(con_z1, u_z1, B),
+                           z2=qp_rows(con_z2, u_z2, B))
 
     # ------------------------------------------------------------------
     def nonlinear_cost(self, state: RTIState, yref, yref_e, mods: QPMods = None):

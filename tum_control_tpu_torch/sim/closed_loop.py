@@ -29,6 +29,7 @@ from tum_control_tpu_torch.sim.disturbances import TYPE_NONE, DisturbanceConfig,
 from tum_control_tpu_torch.sim.estimator import estimate, init_estimator
 from tum_control_tpu_torch.track.planner import planner_emulator
 from tum_control_tpu_torch.track.trajectory import RefTrajectory
+from tum_control_tpu_torch.utils.trace import span
 
 PLANT_SUBSTEPS = 4  # CasADi 'rk' number_of_finite_elements
 
@@ -129,10 +130,16 @@ class ClosedLoopSim:
         (B, 7) recorded disturbances, used when the sim was built with
         playback=True. `traj` overrides the sim's lap, e.g. with one lap per
         scenario (track/trajectory.py::select_laps); `mods` (a QPMods)
-        overrides QP weights and bounds for this solve."""
+        overrides QP weights and bounds for this solve. The step is the span
+        `tc.step` (utils/trace.py), its layers the spans inside it."""
+        with span("tc.step"):
+            return self._step(carry, w_deriv_play, w_se_play, traj, mods)
+
+    def _step(self, carry: SimCarry, w_deriv_play, w_se_play, traj, mods) -> tuple:
         B = carry.x_sim.shape[0]
         traj = self.traj if traj is None else traj
-        _, window = planner_emulator(traj, carry.pose, self.Tp, self.N + 1)
+        with span("tc.planner"):
+            _, window = planner_emulator(traj, carry.pose, self.Tp, self.N + 1)
         if carry.extra is not None:
             out, ctrl_state, extra = self.controller.solve_with_extra(
                 carry.ctrl_state, carry.extra, carry.x_est, window, mods=mods)
@@ -164,12 +171,15 @@ class ClosedLoopSim:
             pose_next = x_next8[:, :2]
         else:
             f_nom = lambda x, u: sim_ode(x, u, self.vp_sim, self.tp_sim)
-            x_sim_next = rk4_multistep(f_nom, carry.x_sim, u_plant, self.Ts, PLANT_SUBSTEPS)
+            with span("tc.plant"):
+                x_sim_next = rk4_multistep(f_nom, carry.x_sim, u_plant, self.Ts, PLANT_SUBSTEPS)
             if self.dist_deriv.kind != TYPE_NONE:
                 w_deriv = (w_deriv_play if self.playback
                            else draw_disturbance(self.dist_deriv, carry.key, B))
                 f_dist = lambda x, u: sim_ode_disturbed(x, u, w_deriv, self.vp_sim, self.tp_sim)
-                x_dist_next = rk4_multistep(f_dist, carry.x_sim, u_plant, self.Ts, PLANT_SUBSTEPS)
+                with span("tc.plant"):
+                    x_dist_next = rk4_multistep(f_dist, carry.x_sim, u_plant, self.Ts,
+                                                PLANT_SUBSTEPS)
             else:
                 w_deriv = zeros7
                 x_dist_next = x_sim_next
@@ -181,7 +191,8 @@ class ClosedLoopSim:
             x_next8 = torch.cat([x_dist_next, a_in[:, None]], dim=1)
             pose_next = x_sim_next[:, :2]
 
-        x_est_next, est_state = estimate(carry.est_state, x_next8)
+        with span("tc.estimator"):
+            x_est_next, est_state = estimate(carry.est_state, x_next8)
 
         # metrics at the *current* state vs the window head
         yaw = carry.x_sim[:, 2]
