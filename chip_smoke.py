@@ -134,8 +134,8 @@ Phases (any failure raises and the script exits non-zero):
      the catalog paths are also held as the loops are in phase 8
      (EVAL_HOLD, from the card's carry, the catalog's subset fed the card's
      noise). Each loop path (phase 3, after its timed window; WMPC for one
-     policy period) and one served cycle of the pipelined dispatcher
-     (phase 6) run under torch.cuda.set_sync_debug_mode("error"): no step
+     policy period) and one served cycle of the pipelined dispatcher (phase
+     6, a replay of the step's graph) run under torch.cuda.set_sync_debug_mode("error"): no step
      may make the host wait for the card;
  11b. `fit`: the tire-identification tools (golden_attribution,
      fit_tires_es, fit_tires_closedloop) on a golden pair the card writes
@@ -1928,7 +1928,7 @@ def serve_phase(dev, smi):
         recs[mode] = read_telemetry(tele)
     launches = dict(build.LAUNCHES)
     applied = res["pipeline"].pop("apply_log")
-    say(f"[serve] launches over 2 x ({SERVE_CYCLES} cycles and the warm-up step): "
+    say(f"[serve] launches over 2 x (the warm-up's eager step and its graph's capture): "
         f"{json.dumps(launches)}")
     check_launches("serve", launches)
     for mode, rec in recs.items():
@@ -1970,19 +1970,25 @@ def serve_phase(dev, smi):
         check(bool((gap <= TOL_SERVE * scale).all()),
               f"serve/{mode}: controls {gap} from run_from's")
 
-    # one served cycle of the pipelined dispatcher (the step, its packed
-    # vector copied into pinned memory, an event behind the copy) may not
-    # make the host wait for the card
+    # one served cycle of the pipelined dispatcher as it is served after the
+    # warm-up (the step's graph replayed, its packed vector copied into
+    # pinned memory, an event behind the copy) may not make the host wait
+    # for the card
     carry = sim.init_carry(x0m[None], x0s[None], key=0)
     zeros = torch.zeros_like(carry.x_sim)
-    rows = torch.empty((2, deploy_rt.PACKED), dtype=torch.float32, pin_memory=True)
-    carry, ev = deploy_rt.dispatch_step(sim, carry, zeros, rows[0])
+    rows = torch.empty((deploy_rt.WARMUP_STEPS + 1, deploy_rt.PACKED), dtype=torch.float32,
+                       pin_memory=True)
+    for i in range(deploy_rt.WARMUP_STEPS):
+        carry, ev = deploy_rt.dispatch_step(sim, carry, zeros, rows[i])
+        ev.synchronize()
+    _, ev = without_sync(lambda: deploy_rt.dispatch_step(sim, carry, zeros, rows[-1]), "serve", 1)
     ev.synchronize()
-    _, ev = without_sync(lambda: deploy_rt.dispatch_step(sim, carry, zeros, rows[1]), "serve", 1)
-    ev.synchronize()
-    check(bool(torch.isfinite(rows).all()) and float(rows[1, 6]) == 0.0,
-          f"serve: the dispatched cycle's packed row {rows[1].tolist()}")
-    return dict(launches=launches, steps=2 * (SERVE_CYCLES + 1), results=res)
+    check(bool(torch.isfinite(rows).all()) and float(rows[-1, 6]) == 0.0,
+          f"serve: the dispatched cycle's packed row {rows[-1].tolist()}")
+    # the kernel wrappers count the steps each run launches eagerly: the
+    # warm-up's eager call, and the capture's side-stream step and captured
+    # step; the replayed cycles launch the same kernels through the graph
+    return dict(launches=launches, steps=2 * (deploy_rt.WARMUP_STEPS + 1), results=res)
 
 
 def bench_phase(dev, smi):

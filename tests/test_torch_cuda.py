@@ -20,11 +20,15 @@ version, against one shared-tire launch per member, and the table launch
 bitwise against the shared-tire launch on the same values; one step of the
 closed-loop tire fit under set_sync_debug_mode("error").
 No host sync: steps of each loop path (WMPC: a policy period) and one
-served cycle of the pipelined dispatcher under
+served cycle of the pipelined dispatcher (a replay of the step's graph) under
 torch.cuda.set_sync_debug_mode("error"). The evaluation tools at a tiny T:
 each runs on the card and launches its path's kernels (and no other); the
 acc24 propagation against the CPU's float64 one; the SB3 converter. The
-host spans (utils/trace.py) inside a region captured in a CUDA graph.
+host spans (utils/trace.py) inside a region captured in a CUDA graph. The
+served step's CUDA graph (deploy_rt.packed_step) bitwise against the eager
+step and its packing: 200 cycles of nominal, SNMPC and R2NMPC, a carry that
+is not the last one returned, new tensor tires, disturbance draws, and the
+pipelined loop over the graph.
 
 Marked `cuda`; without a CUDA device every test skips. On a GPU machine:
 
@@ -36,6 +40,7 @@ ill-conditioned H the factorizations are held by backward error instead.
 """
 import ctypes
 import os
+import time
 
 import numpy as np
 import pytest
@@ -702,17 +707,158 @@ def test_loop_steps_make_no_host_sync(dev, path):
 
 
 def test_served_cycle_makes_no_host_sync(dev):
-    from tum_control_tpu_torch.deploy_rt import PACKED, dispatch_step
+    """The pipelined dispatcher's cycle as it is served: after the eager
+    call and the capture, a replayed cycle makes no host sync."""
+    from tum_control_tpu_torch.deploy_rt import GRAPH_STEPS, PACKED, WARMUP_STEPS, dispatch_step
 
     sim, x0m, x0s, _, _ = build_simulation(SimConfig(sim_mode=0, T=0.1), MPCConfig())
     carry = sim.init_carry(x0m[None], x0s[None], key=0)
     zeros = torch.zeros_like(carry.x_sim)
-    rows = torch.empty((2, PACKED), dtype=torch.float32, pin_memory=True)
-    carry, ev = dispatch_step(sim, carry, zeros, rows[0])
+    rows = torch.empty((WARMUP_STEPS + 1, PACKED), dtype=torch.float32, pin_memory=True)
+    for i in range(WARMUP_STEPS):
+        carry, ev = dispatch_step(sim, carry, zeros, rows[i])
+        ev.synchronize()
+    replays = GRAPH_STEPS["replay"]
+    carry, ev = without_sync(lambda: dispatch_step(sim, carry, zeros, rows[-1]), "serve", 1)
     ev.synchronize()
-    carry, ev = without_sync(lambda: dispatch_step(sim, carry, zeros, rows[1]), "serve", 1)
-    ev.synchronize()
-    assert torch.isfinite(rows).all() and float(rows[1, 6]) == 0.0
+    assert GRAPH_STEPS["replay"] == replays + 1
+    assert torch.isfinite(rows).all() and (rows[:, 6] == 0.0).all()
+
+
+def _served_sim(dev, controller="nominal", **sim_kw):
+    sim, x0m, x0s, _, _ = build_simulation(SimConfig(sim_mode=0, **sim_kw),
+                                           MPCConfig(controller=controller))
+    return sim, sim.init_carry(x0m[None], x0s[None], key=5)
+
+
+def _fresh(carry, key=None):
+    """A carry of new tensors with `carry`'s values (and `key`, if given)."""
+    from tum_control_tpu_torch.deploy_rt import _cloned
+
+    out = _cloned(carry)
+    return out if key is None else out._replace(key=key)
+
+
+def _assert_served_equal(graphed, eager, cycle):
+    from tum_control_tpu_torch.deploy_rt import _tensors
+
+    (gc_, gp), (ec, ep) = graphed, eager
+    assert torch.equal(gp, ep), (cycle, gp, ep)
+    for i, (a, b) in enumerate(zip(_tensors(gc_), _tensors(ec))):
+        assert torch.equal(a, b), (cycle, i)
+
+
+def _eager_served(sim, carry, zeros):
+    from tum_control_tpu_torch.deploy_rt import pack_telemetry
+
+    carry, log = sim.step(carry, zeros, zeros)
+    return carry, pack_telemetry(log)
+
+
+@pytest.mark.parametrize("controller", ["nominal", "snmpc", "rnmpc"])
+def test_served_graph_equals_the_eager_step(dev, controller):
+    """packed_step (eager, capture, then replays) against the eager sim.step
+    plus packing from the same start, bitwise in every one of 200 served
+    cycles; the counter reads 1 eager, 1 capture and 198 replays."""
+    from tum_control_tpu_torch.deploy_rt import GRAPH_STEPS, packed_step
+
+    sim, carry = _served_sim(dev, controller)
+    zeros = torch.zeros_like(carry.x_sim)
+    before = dict(GRAPH_STEPS)
+    g, e = carry, _fresh(carry)
+    for cycle in range(200):
+        out_g, out_e = packed_step(sim, g, zeros), _eager_served(sim, e, zeros)
+        _assert_served_equal(out_g, out_e, cycle)
+        assert int(out_e[1][6]) == 0
+        g, e = out_g[0], out_e[0]
+    assert {k: GRAPH_STEPS[k] - before[k] for k in GRAPH_STEPS} == dict(
+        eager=1, capture=1, replay=198)
+
+
+def test_served_graph_honours_a_foreign_carry_and_new_tires(dev):
+    """A carry that is not the one the last call returned is copied in, and
+    new tensor tires (sim.set_tires) make a new graph key (eager, capture,
+    replay): every result equals the eager step from the same carry."""
+    from tum_control_tpu_torch.deploy_rt import GRAPH_STEPS, packed_step
+
+    sim, start = _served_sim(dev)
+    zeros = torch.zeros_like(start.x_sim)
+    carry = start
+    for _ in range(5):
+        carry, _ = packed_step(sim, carry, zeros)
+    # the start again (not the last result), then an eager chain's carry
+    eager = _eager_served(sim, _fresh(start), zeros)
+    _assert_served_equal(packed_step(sim, start, zeros), eager, "start")
+    eager = _eager_served(sim, eager[0], zeros)
+    other = _fresh(eager[0])
+    _assert_served_equal(packed_step(sim, other, zeros), _eager_served(sim, eager[0], zeros),
+                         "foreign")
+    tp = sim.tp_sim
+    sim.set_tires(type(tp)(*(torch.tensor(float(v) * 1.03, device=dev) for v in tp)))
+    before = dict(GRAPH_STEPS)
+    g, e = other, _fresh(other)
+    for cycle in range(6):
+        out_g, out_e = packed_step(sim, g, zeros), _eager_served(sim, e, zeros)
+        _assert_served_equal(out_g, out_e, cycle)
+        g, e = out_g[0], out_e[0]
+    assert {k: GRAPH_STEPS[k] - before[k] for k in GRAPH_STEPS} == dict(
+        eager=1, capture=1, replay=4)
+
+
+def test_served_graph_replays_the_eager_draws(dev):
+    """With derivative disturbances and measurement noise on, the replayed
+    steps draw what the eager steps draw from a generator of the same seed
+    (the graph holds the carry's generator)."""
+    from tum_control_tpu_torch.deploy_rt import GRAPH_STEPS, draws, packed_step
+    from tum_control_tpu_torch.sim.closed_loop import make_generator
+
+    sim, carry = _served_sim(dev, simulate_disturbances=True, simulate_state_estimation=True)
+    assert draws(sim)
+    zeros = torch.zeros_like(carry.x_sim)
+    replays = GRAPH_STEPS["replay"]
+    g, e = carry, _fresh(carry, make_generator(5, dev))
+    for cycle in range(50):
+        out_g, out_e = packed_step(sim, g, zeros), _eager_served(sim, e, zeros)
+        _assert_served_equal(out_g, out_e, cycle)
+        g, e = out_g[0], out_e[0]
+    assert GRAPH_STEPS["replay"] == replays + 48
+
+
+def test_pipelined_loop_serves_the_graph(dev):
+    """A short run_pipelined (a paced stub executor) after deploy_rt.main's warm-up
+    (the eager call and the capture): every dispatch replays the graph, and
+    the applicator applies fresh controls."""
+    from tum_control_tpu_torch.deploy_rt import (
+        GRAPH_STEPS, WARMUP_STEPS, packed_step, run_pipelined,
+    )
+
+    class PacedExecutor:
+        """The executor's deadline grid (perf_counter_ns) without the native
+        library: begin_cycle sleeps until the next deadline."""
+
+        def __init__(self, period_ns):
+            self.period_ns, self.next, self.records = period_ns, None, []
+
+        def begin_cycle(self):
+            now = time.perf_counter_ns()
+            self.next = now if self.next is None else max(self.next + self.period_ns, now)
+            if self.next > now:
+                time.sleep((self.next - now) / 1e9)
+            return self.next
+
+        def record(self, *args):
+            self.records.append(args)
+
+    sim, carry = _served_sim(dev)
+    zeros = torch.zeros_like(carry.x_sim)
+    for _ in range(WARMUP_STEPS):
+        packed_step(sim, carry, zeros)
+    ex = PacedExecutor(20_000_000)
+    replays = GRAPH_STEPS["replay"]
+    out = run_pipelined(sim, carry, ex, 30, 0.02, 2, 1.5)
+    assert len(ex.records) == 30 and out["distinct_controls"] >= 2
+    assert GRAPH_STEPS["replay"] == replays + 30
+    assert all(r[2] == 0 and np.isfinite(r[6]) for r in ex.records)
 
 
 EVAL_TOOLS = {

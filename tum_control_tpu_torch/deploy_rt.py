@@ -36,10 +36,14 @@ device:
                 torch call. When no new result is in, it holds the previous
                 control and counts a stale cycle.
 
-The dispatcher's eager step is some 3,500 PyTorch calls of Python
-dispatch, which compete with the applicator, the fetchers and the sentinel
-for the interpreter lock; `sys.setswitchinterval(0.0005)` hands the lock
-to the applicator often, but late cycle starts remain possible. A sentinel
+On a card the served step is one CUDA graph (`packed_step`): its first
+call for a graph key runs eagerly, the second captures the step and every
+later call replays it, so a cycle's host work is a few identity checks and
+one graph launch where the eager step is some 3,500 PyTorch calls of
+Python dispatch. On the CPU the step stays eager. The dispatcher still
+competes with the applicator, the fetchers and the sentinel for the
+interpreter lock; `sys.setswitchinterval(0.0005)` hands the lock to the
+applicator often, but late cycle starts remain possible. A sentinel
 thread stamps the clock every 2 ms; every late cycle start is classified
 against the sentinel's freeze windows (> 10 ms gaps) and reported, with
 the attribution of the stale holds and the age decomposition (host
@@ -58,6 +62,7 @@ import queue
 import sys
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -65,20 +70,167 @@ import torch
 from tum_control_tpu_torch.api import build_simulation
 from tum_control_tpu_torch.config import MPCConfig, SimConfig
 from tum_control_tpu_torch.device import resolve_device
+from tum_control_tpu_torch.sim.disturbances import TYPE_NONE
 from tum_control_tpu_torch.utils.rt_runtime import RealtimeExecutor
 from tum_control_tpu_torch.utils.trace import span
 
 N_FETCH = 3        # fetcher pool size
 PACKED = 9         # [u0, u1, cost, time, sqp_iter, qp_iter, status, lat_dev, vel_dev]
+WARMUP_STEPS = 2   # packed_step's eager call, then its graph's capture
+
+# packed_step's calls by how each ran: eagerly (on the CPU, or the first
+# call of a graph key), capturing the step's graph, or replaying it
+GRAPH_STEPS = {"eager": 0, "capture": 0, "replay": 0}
+
+
+def pack_telemetry(log):
+    """The first scenario's telemetry as ONE float32 vector (one
+    device->host copy per cycle): simU (2), simSolverDebug (5), lat_dev,
+    vel_dev."""
+    packed = torch.cat([log.simU[0], log.simSolverDebug[0], log.lat_dev, log.vel_dev])
+    return packed.to(torch.float32)
+
+
+def _eager_step(sim, carry, zeros):
+    carry, log = sim.step(carry, zeros, zeros)
+    return carry, pack_telemetry(log)
+
+
+def _tensors(tree) -> list:
+    """The tensors of a SimCarry (a tree of NamedTuples, tensors and other
+    leaves), in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, tuple):
+        return [t for x in tree for t in _tensors(x)]
+    return []
+
+
+def _cloned(tree):
+    """`tree` with a clone of each tensor; other leaves kept."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, tuple):
+        return type(tree)(*(_cloned(x) for x in tree))
+    return tree
+
+
+def draws(sim) -> bool:
+    """Whether a step draws from the carry's generator (a disturbance or
+    measurement-noise stream that is on and not played back)."""
+    return not sim.playback and (sim.dist_deriv.kind != TYPE_NONE
+                                 or sim.dist_se.kind != TYPE_NONE)
+
+
+def graph_objects(sim, carry) -> tuple:
+    """What a replay reads by reference and cannot see replaced: the
+    controller, the lap, the plant's and the controller's tires and, where
+    the step draws, the carry's generator."""
+    ctrl = sim.controller
+    tires = getattr(ctrl, "tp", getattr(getattr(ctrl, "base", None), "tp", None))
+    return (ctrl, sim.traj, sim.tp_sim, tires, carry.key if draws(sim) else None)
+
+
+def graph_signature(carry, zeros) -> tuple:
+    """The shapes, dtypes and devices of the carry's tensors and of `zeros`."""
+    return tuple((t.shape, t.dtype, t.device) for t in _tensors(carry) + [zeros])
+
+
+class StepGraph:
+    """One sim's served step as a CUDA graph: its key (graph_objects by
+    identity, graph_signature by value), the static carry and zeros the
+    graph reads, and the packed vector it writes. The graph ends by copying
+    the step's new carry into the static carry, so the static carry is both
+    the replay's input and its output."""
+
+    def __init__(self, objects: tuple, signature: tuple):
+        self.objects, self.signature = objects, signature
+        self.graph = self.carry = self.zeros = self.packed = None
+
+    def fits(self, sim, carry, zeros) -> bool:
+        objects = graph_objects(sim, carry)
+        if any(a is not b for a, b in zip(objects, self.objects)):
+            return False
+        if carry is self.carry and zeros is self.zeros:
+            return True
+        return graph_signature(carry, zeros) == self.signature
+
+    def load(self, carry, zeros):
+        """Copy into the static buffers each tensor of `carry` and `zeros`
+        that is not already the static one (nothing when `carry` is the
+        carry the last replay returned)."""
+        if carry is not self.carry:
+            for s, t in zip(_tensors(self.carry), _tensors(carry)):
+                if s is not t:
+                    s.copy_(t)
+        if zeros is not self.zeros:
+            self.zeros.copy_(zeros)
+
+    def capture(self, sim, carry, zeros):
+        """Static buffers from `carry` and `zeros`, one eager step on a side
+        stream (the warm-up the CUDA graph documentation prescribes; its
+        draws are taken back), then the step captured on the carry's card."""
+        self.carry, self.zeros = _cloned(carry), zeros.clone()
+        gen = carry.key if draws(sim) else None
+        state = gen.get_state() if gen is not None else None
+        stream = torch.cuda.current_stream(carry.x_sim.device)
+        side = torch.cuda.Stream(carry.x_sim.device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            _eager_step(sim, self.carry, self.zeros)
+        stream.wait_stream(side)
+        if gen is not None:
+            gen.set_state(state)
+        graph = torch.cuda.CUDAGraph()
+        if gen is not None:
+            graph.register_generator_state(gen)
+        # thread_local: another thread's CUDA calls (the pipelined loop's
+        # fetchers) do not void a capture made in the dispatcher
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            new, self.packed = _eager_step(sim, self.carry, self.zeros)
+            # the step's outputs are new tensors (none is an input), so
+            # each copy reads what the step wrote
+            for s, o in zip(_tensors(self.carry), _tensors(new)):
+                s.copy_(o)
+        self.graph = graph
+
+
+_GRAPHS = weakref.WeakKeyDictionary()  # sim -> its StepGraph
 
 
 def packed_step(sim, carry, zeros):
     """One closed-loop step of the single scenario and its telemetry packed
-    into ONE float32 device vector (one device->host copy per cycle):
-    simU (2), simSolverDebug (5), lat_dev, vel_dev."""
-    carry, log = sim.step(carry, zeros, zeros)
-    packed = torch.cat([log.simU[0], log.simSolverDebug[0], log.lat_dev, log.vel_dev])
-    return carry, packed.to(torch.float32)
+    into one float32 device vector (pack_telemetry): (new carry, packed).
+
+    On the CPU the step runs eagerly. On a card it is a CUDA graph, one per
+    sim: the first call for a graph key (StepGraph: the controller, lap and
+    tires by identity, the draw generator where the step draws, the
+    carry's shapes, dtypes and device) runs eagerly, so the hand kernels
+    build; the second captures the step and replays it; every later call
+    with the same key replays it. A carry or `zeros` that is not the one
+    the last replay returned is copied into the graph's buffers first.
+    Tensors changed in place are seen by the replay. On a card the returned
+    carry and `packed` are the graph's own buffers: they hold until the
+    next packed_step on the same sim, which overwrites them (clone what
+    must outlive it). A replay is the span `tc.step`; the spans inside the
+    step and the kernels' LAUNCHES count only eager and captured steps."""
+    if carry.x_sim.device.type != "cuda":
+        GRAPH_STEPS["eager"] += 1
+        return _eager_step(sim, carry, zeros)
+    g = _GRAPHS.get(sim)
+    if g is None or not g.fits(sim, carry, zeros):
+        _GRAPHS[sim] = StepGraph(graph_objects(sim, carry), graph_signature(carry, zeros))
+        GRAPH_STEPS["eager"] += 1
+        return _eager_step(sim, carry, zeros)
+    if g.graph is None:
+        g.capture(sim, carry, zeros)
+        GRAPH_STEPS["capture"] += 1
+    else:
+        g.load(carry, zeros)
+        GRAPH_STEPS["replay"] += 1
+    with span("tc.step"):
+        g.graph.replay()
+    return g.carry, g.packed
 
 
 def dispatch_step(sim, carry, zeros, row):
@@ -366,9 +518,12 @@ def main(argv=None, dtype=torch.float32):
                                            device=device, dtype=dtype)
     carry = sim.init_carry(x0m[None], x0s[None], key=0)
 
-    # warm-up outside the timed loop: the kernels build at their first
-    # launch and the caching allocator takes its blocks
-    _, packed0 = packed_step(sim, carry, torch.zeros_like(carry.x_sim))
+    # warm-up outside the timed loop, before any serving thread starts: the
+    # kernels build at the first (eager) call, the caching allocator takes
+    # its blocks, and on a card the second call captures the step's graph
+    zeros = torch.zeros_like(carry.x_sim)
+    for _ in range(WARMUP_STEPS):
+        _, packed0 = packed_step(sim, carry, zeros)
     packed0.cpu()
 
     ex = RealtimeExecutor(period_s=args.period)
