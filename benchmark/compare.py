@@ -15,13 +15,16 @@ sampled step.
              percentile over the sampled (pair, component) gaps
   iterate_gap  the gap of the controller's carried iterate (X over every
              node and state, U over every stage and input) after the
-             failed-solve re-initialisation, each component over the
-             reference's largest change of it across the step, at the 99th
-             percentile over the sampled gaps
+             failed-solve re-initialisation, and of every float tensor of
+             the controller's carried state (`extra`: R2NMPC's back-offs,
+             WMPC's weights and observation), each component (the last
+             axis) over the reference's largest change of it across the
+             step, at the 99th percentile over the sampled gaps
   pairs_off  the number of pairs with any u, state or iterate gap above
-             PAIR_FACTOR times that number's limit, or a status that
-             differs from the reference's (a gap that is not finite is
-             above any limit)
+             PAIR_FACTOR times that number's limit, or a status, or an
+             integer of the carried state (WMPC's step count and action),
+             that differs from the reference's (a gap that is not finite
+             is above any limit)
 
 The 99th percentiles bound the bulk of the pairs; pairs_off bounds how many
 may lie far beyond those limits. In about one run in three a single
@@ -37,7 +40,9 @@ sampled step, while it is too small a share of a batch of 128 to move a
 
 `Sampler` keeps K steps drawn uniformly from the whole window (reservoir
 sampling from the seed): the carry before the step and the program's
-outputs, as copies taken when the step is issued.
+outputs, as copies taken when the step is issued. Where the configuration
+draws disturbances, the carry before the step holds the state of the
+program's generator, from which the reference draws for itself.
 """
 from __future__ import annotations
 
@@ -48,14 +53,35 @@ import torch
 NUMBERS = ("u_gap", "state_gap", "iterate_gap", "pairs_off")
 QUANTILE = 0.99
 KINDS = dict(u="u_gap", state="state_gap", iterate="iterate_gap")
+STATE, ITERATE = ("x_sim", "x_est"), ("X", "U")
 PAIR_FACTOR = 2.0
 
 
-def carry_tensors(carry) -> dict:
-    """The program's SimCarry as the reference's plain tensors."""
-    return dict(X=carry.ctrl_state.X, U=carry.ctrl_state.U, warm=tuple(carry.ctrl_state.warm),
-                x_sim=carry.x_sim, x_est=carry.x_est, est_buf=carry.est_state.buf,
-                est_count=carry.est_state.count, pose=carry.pose)
+def carry_tensors(carry, draws: bool = False) -> dict:
+    """The program's SimCarry as the reference's plain tensors: `extra`, the
+    tensors of the controller's carried state, where it has one, and with
+    `draws` (the configuration draws disturbances) `gen_state`, the state of
+    the draws' generator, which the step advances."""
+    out = dict(X=carry.ctrl_state.X, U=carry.ctrl_state.U, warm=tuple(carry.ctrl_state.warm),
+               x_sim=carry.x_sim, x_est=carry.x_est, est_buf=carry.est_state.buf,
+               est_count=carry.est_state.count, pose=carry.pose)
+    if carry.extra is not None:
+        out["extra"] = extra_tensors(carry.extra)
+    if draws:
+        out["gen_state"] = carry.key.get_state()
+    return out
+
+
+def extra_tensors(extra) -> tuple:
+    """The tensors of a controller's carried NamedTuple in field order, a
+    nested one (WMPC's `base`, R2NMPC's back-offs) in its place."""
+    out = []
+    for v in extra:
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        elif isinstance(v, tuple):
+            out.extend(extra_tensors(v))
+    return tuple(out)
 
 
 def copy(d: dict) -> dict:
@@ -99,35 +125,52 @@ def in_place_of_program(samples: list, outs: list) -> list:
     return [dict(s, u0=o["u0"], status=o["status"], after=o) for s, o in zip(samples, outs)]
 
 
+def _compared(s: dict, out: dict):
+    """(name, before, program, reference) of each carried tensor compared:
+    the plant state and estimate, the iterate, then the carried state."""
+    for key in STATE + ITERATE:
+        yield key, s["before"][key], s["after"][key], out[key]
+    extra = [s["before"].get("extra", ()), s["after"].get("extra", ()), out.get("extra", ())]
+    if len({len(e) for e in extra}) != 1:
+        raise ValueError(f"the carried state holds {[len(e) for e in extra]} tensors before the "
+                         "step, in the program and in the reference")
+    for j, ts in enumerate(zip(*extra)):
+        yield ("extra", j), *ts
+
+
 def gaps(samples: list, reference, outs=None) -> dict:
     """The scaled gaps of every sampled pair: {"u": (pairs, 2), "state":
-    (pairs, 15), "iterate": (pairs, X's and U's entries), "bad": (pairs,)
-    status mismatch}, the reference run one sample at a time (or its
+    (pairs, 15), "iterate": (pairs, the entries of X, U and the carried
+    state's float tensors), "bad": (pairs,) a status or a carried integer
+    unlike the reference's}, the reference run one sample at a time (or its
     outputs `outs`, given)."""
     du, ur, bad = [], [], []
-    dx = {k: [] for k in ("x_sim", "x_est", "X", "U")}
-    ref_dx = {k: [] for k in dx}
+    dx, ref_dx = {}, {}
     for i, s in enumerate(samples):
         out = reference.step(s["before"]) if outs is None else outs[i]
         dev = out["u0"]
         u_p = s["u0"].to(dev.device, dev.dtype)
         du.append((u_p - out["u0"]).abs())
         ur.append(out["u0"].abs())
-        bad.append(s["status"].to(dev.device).reshape(-1).to(torch.int32) != out["status"])
-        for key in dx:
-            prev = s["before"][key].to(dev.device, dev.dtype)
-            prog = s["after"][key].to(dev.device, dev.dtype)
-            n = prog.shape[-1]
-            dx[key].append((prog - out[key]).abs().reshape(prog.shape[0], -1, n))
-            ref_dx[key].append((out[key] - prev).abs().reshape(-1, n))
+        off = s["status"].to(dev.device).reshape(-1).to(torch.int32) != out["status"]
+        for key, prev, prog, ref in _compared(s, out):
+            if not prog.is_floating_point():
+                off = off | (prog.to(dev.device) != ref).reshape(prog.shape[0], -1).any(dim=1)
+                continue
+            prev, prog = prev.to(dev.device, dev.dtype), prog.to(dev.device, dev.dtype)
+            n = prog.shape[-1] if prog.dim() > 1 else 1
+            dx.setdefault(key, []).append((prog - ref).abs().reshape(prog.shape[0], -1, n))
+            ref_dx.setdefault(key, []).append((ref - prev).abs().reshape(-1, n))
+        bad.append(off)
     scale_u = torch.clamp(torch.cat(ur).amax(dim=0), min=1e-12)
     bad = torch.cat(bad)
     u = torch.cat(du) / scale_u
     u = torch.where(bad[:, None], torch.ones_like(u), u)
     scaled = {k: (torch.cat(dx[k]) / torch.clamp(torch.cat(ref_dx[k]).amax(dim=0), min=1e-12))
               .flatten(1) for k in dx}
-    return dict(u=u, state=torch.cat([scaled["x_sim"], scaled["x_est"]], dim=1),
-                iterate=torch.cat([scaled["X"], scaled["U"]], dim=1), bad=bad)
+    return dict(u=u, state=torch.cat([scaled[k] for k in STATE], dim=1),
+                iterate=torch.cat([v for k, v in scaled.items() if k not in STATE], dim=1),
+                bad=bad)
 
 
 def pair_scores(g: dict, limits: dict) -> torch.Tensor:

@@ -39,6 +39,7 @@ def run(ctx):
     sim, carry, lap_points = program.build(ctx, B)
     zeros = torch.zeros_like(carry.x_sim)
     step = sim.step
+    draws = program.draws(sim)
     for _ in range(int(tr["warmup_steps"])):
         carry, _ = step(carry, zeros, zeros)
     program.sync(ctx.device)
@@ -56,7 +57,7 @@ def run(ctx):
             if t - t0 >= ctx.seconds:
                 break
             keep = sampler.admit()
-            before = copy(carry_tensors(carry)) if keep else None
+            before = copy(carry_tensors(carry, draws)) if keep else None
             carry, log = step(carry, zeros, zeros)
             ends.append(time.perf_counter() - t0)
             issue.append(ends[-1] - (t - t0))

@@ -53,6 +53,10 @@ def run(ctx):
 
     tr = ctx.cell.traffic
     sim, carry, lap_points = program.build(ctx, 1)
+    if program.draws(sim):
+        raise ValueError("the serve driver takes no configuration that draws disturbances: "
+                         "its sample does not hold the generator's state that the reference "
+                         "draws from, and the served step, one CUDA graph, replays its draws")
     zeros = torch.zeros_like(carry.x_sim)
     for _ in range(int(tr["warmup_steps"])):
         carry, packed = deploy_rt.packed_step(sim, carry, zeros)

@@ -15,6 +15,9 @@ broken step through their own window, sample and comparison.
   one_status    one scenario's solve reported failed (status 1), so the
                 step re-initialises its iterate
   one_state     one scenario's state returned unchanged
+  dropped_draws the plant gets a zero derivative disturbance: the step
+                still draws it, so the estimation noise that follows is
+                drawn as before (a configuration that draws)
 
 The benchmark runs on one chip, so no exchange between chips can be left
 out.
@@ -105,8 +108,14 @@ def one_state(sim):
     return broken
 
 
+def dropped_draws(sim):
+    d = sim.dist_deriv
+    sim.dist_deriv = d._replace(magnitudes=torch.zeros_like(d.magnitudes))
+    return sim.step
+
+
 FAULTS = {f.__name__: f for f in (unchanged, half_batch, altered, one_control, one_status,
-                                  one_state)}
+                                  one_state, dropped_draws)}
 
 
 @contextlib.contextmanager

@@ -1,6 +1,7 @@
 """step_mfu.batch: The whole step's share of the card's peak: the least time of the step's
 counted work (benchmark/work.py::step_work: planner, linearize, condense,
-QP assembly, the QP solve, plant, estimator), max(FLOPs / peak float32
+QP assembly, the QP solve, plant, estimator, the draws of a configuration
+that draws), max(FLOPs / peak float32
 rate, bytes / peak bandwidth), over the card's busy time per step in the
 profiled stretch (the union of its operations' intervals), the time that
 `device_solves_per_s` divides by: the share bounds that rate. Nothing

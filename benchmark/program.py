@@ -46,6 +46,16 @@ def build(ctx, batch: int):
     return sim, carry, int(lap["pos"].shape[0])
 
 
+def draws(sim) -> bool:
+    """Whether the closed loop's step draws from its generator: sim_mode 0,
+    no recorded disturbances played back, a derivative disturbance or
+    estimation noise on."""
+    from tum_control_tpu_torch.sim.disturbances import TYPE_NONE
+
+    return (sim.sim_mode == 0 and not sim.playback
+            and any(d.kind != TYPE_NONE for d in (sim.dist_deriv, sim.dist_se)))
+
+
 def sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)

@@ -13,13 +13,20 @@ dispatch and without importing the port:
                      health check), ops/kernels/condense.py (condense_ref),
                      ops/kernels/linearize.py (linearize_ref)
   controllers.py  <- controllers/nominal.py, controllers/snmpc.py (the dense
-                     formulation, `structured=False`), controllers/pce.py
-  closed_loop.py  <- sim/closed_loop.py (step, sim_mode 0, undisturbed),
-                     track/planner.py, track/trajectory.py, sim/estimator.py
+                     formulation, `structured=False`), controllers/pce.py;
+                     a later controller is a file `controller_<name>.py`
+                     beside it, with hooks of its carried state
+  closed_loop.py  <- sim/closed_loop.py (step, sim_mode 0: the plant, and
+                     where the configuration draws them the disturbed
+                     plant's RK4 and the estimation noise),
+                     sim/disturbances.py (draw_disturbance), track/planner.py,
+                     track/trajectory.py, sim/estimator.py
 
 It reads only the raw data files (vehicle, tire and gg tables, the
 reference lap) and the settings of a benchmark configuration file, and
-takes the program's carries as plain tensors. TF32 is switched off while it
-runs (`tf32_off`); a float32 run of it with TF32 on is the correctness
-control (benchmark/compare.py).
+takes the program's carries as plain tensors: the controller's carried
+state, and the state of the program's generator, from which it draws the
+step's disturbances itself. TF32 is switched off while it runs (`tf32`); a
+float32 run of it with TF32 on is the correctness control
+(benchmark/compare.py).
 """

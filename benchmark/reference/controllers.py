@@ -2,11 +2,15 @@
 the nominal NMPC (8 states, RK4 of 3 substeps over Ts_MPC) and the
 stochastic NMPC in its dense formulation (n_samples + 1 stacked copies of
 the 8-state model, one RK4 substep, PCE chance-constraint surrogates below
-the uncertainty propagation horizon)."""
+the uncertainty propagation horizon); `controller` finds either, or a
+later controller's file with its hooks of carried state."""
 from __future__ import annotations
 
+import importlib.util
 import itertools
 import math
+import os
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -185,11 +189,31 @@ def snmpc(mpc: dict, vp, tp, gg: GG, N: int, dt: float, dtype, device):
     return prob, t(off)
 
 
-def builder(name: str):
-    """The builder of controller `name`: a function of this module, or the
-    `build` of a module `controller_<name>.py` beside it (a later
-    controller comes as a file of its own)."""
+HOOKS = ("init", "problem", "advance")
+
+
+def controller(name: str, root: str) -> SimpleNamespace:
+    """Controller `name` of the reference: `build(mpc, vp, tp, gg, N, dt,
+    dtype, device)` -> (Problem, fan offsets or None), a function of this
+    module or of a file benchmark/reference/controller_<name>.py of the
+    checkout `root` (a later controller comes as a file of its own), and
+    that file's hooks of the controller's carried state (None where it
+    defines none):
+
+      init(x0) -> extra         the carried state of the scenarios x0 (B, 8)
+      problem(p, extra) -> Problem   the Problem of this step, its weights,
+                                bounds and penalties per scenario (B, ...)
+      advance(extra, x0, window, X, U, A, status) -> extra   the carried
+                                state after the step's solve: x0 the
+                                estimate (B, 8), window the planner's, X, U,
+                                A and status `engine.rti`'s
+
+    `extra` is a tuple of tensors in the order of the port's carried
+    NamedTuple's fields, a nested one in its place (compare.extra_tensors)."""
     if name in ("nominal", "snmpc"):
-        return globals()[name]
-    import importlib
-    return importlib.import_module(f"benchmark.reference.controller_{name}").build
+        return SimpleNamespace(build=globals()[name], **dict.fromkeys(HOOKS))
+    path = os.path.join(root, "benchmark", "reference", f"controller_{name}.py")
+    spec = importlib.util.spec_from_file_location(f"benchmark_reference_controller_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return SimpleNamespace(build=mod.build, **{h: getattr(mod, h, None) for h in HOOKS})

@@ -15,6 +15,10 @@ KKT_FAIL_REL = 1e4
 
 
 class Problem(NamedTuple):
+    """The OCP of a controller. Its weights, bounds and penalties are the
+    same for every scenario, or carry a leading batch axis (B, ...) where a
+    controller's carried state sets them per scenario (the port's QPMods)."""
+
     N: int
     nx: int
     nu: int
@@ -22,13 +26,13 @@ class Problem(NamedTuple):
     y_stage: Callable    # (x, u) -> (..., N, ny)
     y_term: Callable     # x (..., nx) -> (..., ny_e)
     con_stage: Callable  # x (..., N+1, nx) -> (..., N+1, nc)
-    W: torch.Tensor
-    We: torch.Tensor
-    con_lb: torch.Tensor
+    W: torch.Tensor      # (ny,) or (B, ny)
+    We: torch.Tensor     # (ny_e,) or (B, ny_e)
+    con_lb: torch.Tensor  # (N+1, nc) or (B, N+1, nc), as the three below
     con_ub: torch.Tensor
     con_z1: torch.Tensor
     con_z2: torch.Tensor
-    u_lb: torch.Tensor
+    u_lb: torch.Tensor   # (N, nu) or (B, N, nu), as the three below
     u_ub: torch.Tensor
     u_z1: torch.Tensor
     u_z2: torch.Tensor
@@ -103,17 +107,18 @@ def build_qp(p: Problem, X, U, x0, yref, yref_e):
     qp = QP(H0=H0, g0=g0, G=G.contiguous(), c0=c0, lb=qp_rows(p.con_lb, p.u_lb, B),
             ub=qp_rows(p.con_ub, p.u_ub, B), z1=qp_rows(p.con_z1, p.u_z1, B),
             z2=qp_rows(p.con_z2, p.u_z2, B))
-    return qp, e, Gam
+    return qp, e, Gam, A
 
 
 def rti(p: Problem, X, U, warm, x0, yref, yref_e):
-    """One real-time iteration. Returns (X, U, warm, status) of the new
-    iterate; a scenario that fails the health check keeps its old iterate
-    and gets status 3."""
+    """One real-time iteration. Returns (X, U, warm, status, A) of the new
+    iterate, with A (B, N, nx, nx) the dynamics' linearization of the last
+    SQP iteration (R2NMPC's covariance recurrence); a scenario that fails
+    the health check keeps its old iterate and gets status 3."""
     B = x0.shape[0]
     Xi, Ui, wi = X, U, warm
     for _ in range(p.sqp_iters):
-        qp, e, Gam = build_qp(p, Xi, Ui, x0, yref, yref_e)
+        qp, e, Gam, A = build_qp(p, Xi, Ui, x0, yref, yref_e)
         w, kkt, wi = solve_ipm(qp, wi, p.qp_iters, n_polish=1)
         Xi = Xi + e + torch.matmul(Gam, w[:, None, :, None])[..., 0]
         Ui = Ui + w.reshape(B, p.N, p.nu)
@@ -124,4 +129,4 @@ def rti(p: Problem, X, U, warm, x0, yref, yref_e):
             & (kkt / qp_scale < KKT_FAIL_REL))
     keep = lambda new, old: torch.where(~good.view((B,) + (1,) * (new.dim() - 1)), old, new)
     return (keep(Xi, X), keep(Ui, U), tuple(keep(n, o) for n, o in zip(wi, warm)),
-            torch.where(good, 0, 3).to(torch.int32))
+            torch.where(good, 0, 3).to(torch.int32), A)

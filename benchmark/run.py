@@ -143,7 +143,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device=None,
 
     t_ref = time.perf_counter()
     with tf32(False):
-        ref = Reference(cell.cfg, ROOT, dtype=torch.float64, device=device)
+        ref = Reference(cell.cfg, root, dtype=torch.float64, device=device)
         compared = judge(out.samples, ref, cell.limits)
     say(f"reference: {len(out.samples)} sampled steps of {out.sample_rows} rows each, "
         f"{time.perf_counter() - t_ref:.3f} s")

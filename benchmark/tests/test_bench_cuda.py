@@ -7,6 +7,8 @@
   the configuration's float32 (float32 with TF32 matmuls), from the same
   sampled carries, judged by the cell's own limits: it must come out not
   correct, where the program's own outputs come out correct;
+- in each cell that draws disturbances, a run whose plant gets none
+  (faults.py's `dropped_draws`) at the cell's own size is not correct;
 - a traced run of the nominal batch cell reports every per-layer metric of
   the cell, with the device's busy and window seconds.
 """
@@ -19,6 +21,7 @@ import torch
 
 from benchmark import run as R
 from benchmark.compare import in_place_of_program, judge
+from benchmark.faults import planted
 from benchmark.reference.closed_loop import Reference, tf32
 
 pytestmark = pytest.mark.cuda
@@ -48,6 +51,15 @@ def test_the_control_is_not_correct(card, workload):
         control = judge(in_place_of_program(out.samples, outs), ref64, cell.limits)
     assert all(c["value"] <= c["limit"] for c in program.values()), program
     assert any(c["value"] > c["limit"] for c in control.values()), control
+
+
+@pytest.mark.parametrize("workload", [w["name"] for w in R.load_spec()["workloads"]
+                                      if R.cell_of(R.load_spec(), w["name"])
+                                      .cfg["sim"].get("simulate_disturbances")])
+def test_dropped_draws_are_not_correct(card, workload):
+    with planted("dropped_draws"):
+        res = R.run_cell(workload, 2**31 + 66, 2.0, False)
+    assert res["correct"] is False, res["compared"]
 
 
 def test_traced_run_reports_every_per_layer_metric(card):

@@ -4,8 +4,10 @@ look skipped, comes out `correct` false, with the cells' own limits. The
 faults of the whole batch or half of it run at a batch of 4 (a window of
 1.5 s); those of one scenario at the cell's own batch of 128, where that
 scenario is under 1 % of the entries that a 99th percentile pools (a
-window of 6 s: three sampled steps or more). The benchmark runs on one
-chip, so no exchange between chips can be left out."""
+window of 6 s: three sampled steps or more). In a cell that draws
+disturbances, a plant that gets none (`dropped_draws`) at a batch of 4.
+The benchmark runs on one chip, so no exchange between chips can be left
+out."""
 import pytest
 import torch
 
@@ -42,6 +44,7 @@ BATCH = [w["name"] for w in SPEC["workloads"]
 CASES = [(w["name"], f) for w in SPEC["workloads"] for f in ("unchanged", "half_batch", "altered")
          if not (w["name"] not in BATCH and f == "half_batch")]
 ONE = [(w, f) for w in BATCH for f in ("one_control", "one_status", "one_state")]
+DRAWN = [w for w in BATCH if R.cell_of(SPEC, w).cfg["sim"].get("simulate_disturbances")]
 
 
 @pytest.mark.parametrize("workload,fault", CASES, ids=[f"{w}-{f}" for w, f in CASES])
@@ -58,6 +61,14 @@ def test_one_broken_scenario_of_the_full_batch_is_not_correct(workload, fault):
     assert res["attempted"] >= 3 * 128
     assert res["correct"] is False, res["compared"]
     assert res["compared"]["pairs_off"]["value"] > res["compared"]["pairs_off"]["limit"]
+
+
+@pytest.mark.parametrize("workload", DRAWN)
+def test_dropped_draws_are_not_correct(small_batch, workload):
+    with planted("dropped_draws"):
+        res = R.run_cell(workload, SEED, 1.5, False, device="cpu")
+    assert res["correct"] is False, res["compared"]
+    assert res["compared"]["state_gap"]["value"] > res["compared"]["state_gap"]["limit"]
 
 
 def test_the_sound_step_is_correct(small_batch):

@@ -47,14 +47,15 @@ def test_reference_agrees_with_the_port_in_float64(config, batch, steps):
 
 
 def test_reference_loads_nothing_of_the_port():
-    """In a fresh process: build the reference of both configurations and run
-    a step from a hand-made carry; no module of the port, of the JAX package
-    or of JAX is loaded."""
+    """In a fresh process: build the reference of each configuration and run
+    a step from a hand-made carry (the disturbed one drawing from a CPU
+    generator's state); no module of the port, of the JAX package or of JAX
+    is loaded."""
     code = r"""
 import sys, json, torch
 sys.path.insert(0, ROOT)
 from benchmark.reference.closed_loop import Reference, CARRY_KEYS
-for name in ("nominal", "snmpc"):
+for name in ("nominal", "snmpc", "snmpc_disturbed"):
     cfg = json.load(open(ROOT + "/benchmark/configs/" + name + ".json"))
     ref = Reference(cfg, ROOT)
     x = torch.tensor([[0.0, 0.0, 0.1, 20.0, 0.0, 0.0, 0.0, 0.0]], dtype=torch.float64)
@@ -63,7 +64,7 @@ for name in ("nominal", "snmpc"):
     c = dict(X=xs[:, None].expand(1, N + 1, xs.shape[1]).clone(), U=torch.zeros(1, N, 2),
              warm=tuple(torch.ones(1, nc) for _ in range(6)), x_sim=x[:, :7], x_est=x,
              est_buf=torch.zeros(1, 8, 15), est_count=torch.zeros(1, dtype=torch.int32),
-             pose=x[:, :2])
+             pose=x[:, :2], gen_state=torch.Generator().manual_seed(1).get_state())
     out = ref.step(c)
     assert torch.isfinite(out["u0"]).all()
 loaded = sorted({m.split(".")[0] for m in sys.modules}

@@ -7,8 +7,10 @@ import json
 import os
 import re
 import shutil
+from typing import NamedTuple
 
 import pytest
+import torch
 
 from benchmark import run as R
 from benchmark.compare import NUMBERS
@@ -67,7 +69,9 @@ def test_metrics_follow_the_contract_and_their_readers():
     for m in SPEC["end_to_end"] + SPEC["per_layer"]:
         assert NAME.match(m["name"]) and UNIT.match(m["unit"])
         assert m["better"] in ("lower", "higher")
-    assert len(SPEC["per_layer"]) == 12
+    names = [m["name"] for m in SPEC["per_layer"]]
+    assert 1 <= len(names) <= 128 and len(set(names)) == len(names)
+    assert not set(names) & set(e2e)
     for m in SPEC["per_layer"]:
         assert set(m) == {"name", "unit", "better", "source", "layer", "moves", "workloads"}
         reader = R.metric_reader(m["name"])
@@ -79,14 +83,21 @@ def test_metrics_follow_the_contract_and_their_readers():
             assert m["unit"] == "%"
 
 
+def _checkout(tmp_path):
+    """A checkout of the benchmark's files (data/ linked in) and the bytes of
+    each, to show that nothing there is edited."""
+    root = tmp_path / "checkout"
+    shutil.copytree(os.path.join(R.ROOT, "benchmark"), root / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    (root / "data").symlink_to(os.path.join(R.ROOT, "data"))
+    return root, {p: p.read_bytes() for p in (root / "benchmark").rglob("*") if p.is_file()}
+
+
 def test_a_cell_is_added_by_new_files_and_entries_alone(tmp_path):
     """A new traffic mix, limits file, per-layer metric and cell: files added
     next to the existing ones and entries added to BENCHMARK.json, no file
     of the benchmark edited."""
-    root = tmp_path / "checkout"
-    shutil.copytree(os.path.join(R.ROOT, "benchmark"), root / "benchmark",
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    before = {p: p.read_bytes() for p in (root / "benchmark").rglob("*") if p.is_file()}
+    root, before = _checkout(tmp_path)
     spec = json.loads(json.dumps(SPEC))
     (root / "benchmark" / "traffic" / "batch16.json").write_text(json.dumps(dict(
         json.load(open(os.path.join(R.ROOT, "benchmark", "traffic", "batch128.json"))), batch=16)))
@@ -107,6 +118,125 @@ def test_a_cell_is_added_by_new_files_and_entries_alone(tmp_path):
     assert [m["name"] for m in cell.e2e] == ["device_solves_per_s", "setup_s"]
     assert [m["name"] for m in cell.per_layer] == ["steps.batch"]
     assert R.metric_reader("steps.batch", str(root)).read({"steps": 7}) == 7
+    after = {p: p.read_bytes() for p in before}
+    assert after == before
+
+
+STUB = '''"""The nominal NMPC with carried state, for the test of the hooks: a count
+of successful solves, and a factor on each scenario's stage weights that
+follows the jerk the solve applies."""
+import torch
+
+from benchmark.reference import controllers
+
+
+def build(mpc, vp, tp, gg, N, dt, dtype, device):
+    return controllers.nominal(mpc, vp, tp, gg, N, dt, dtype, device)
+
+
+def init(x0):
+    B = x0.shape[0]
+    return (torch.zeros(B, dtype=torch.int32, device=x0.device),
+            torch.full((B,), 2.0, dtype=x0.dtype, device=x0.device))
+
+
+def problem(p, extra):
+    return p._replace(W=p.W * extra[1][:, None])
+
+
+def advance(extra, x0, window, X, U, A, status):
+    ok = status == 0
+    return (extra[0] + ok.to(torch.int32),
+            torch.where(ok, 0.8 * extra[1] + 0.2 * (1 + U[:, 0, 0].abs()), extra[1]))
+'''
+
+
+class StubExtra(NamedTuple):
+    count: torch.Tensor
+    factor: torch.Tensor
+
+
+def _carrying(sim, broken):
+    """The port's nominal controller given the stub's carried state; `broken`
+    counts double ("count") or moves the factor by another rule ("factor")."""
+    from tum_control_tpu_torch.ops.rti import QPMods
+
+    ctrl = sim.controller
+    W = ctrl.engine.W
+
+    def init_extra(x0):
+        B = x0.shape[0]
+        return StubExtra(torch.zeros(B, dtype=torch.int32, device=x0.device),
+                         torch.full((B,), 2.0, dtype=x0.dtype, device=x0.device))
+
+    def solve_with_extra(state, extra, x0, window, mods=None):
+        out, new = ctrl.solve(state, x0, window, mods=QPMods(W=W * extra.factor[:, None]))
+        ok = out.stats[:, 4] == 0
+        a = 0.7 if broken == "factor" else 0.8
+        count = extra.count + (2 if broken == "count" else 1) * ok.to(torch.int32)
+        return out, new, StubExtra(count, torch.where(
+            ok, a * extra.factor + (1 - a) * (1 + new.U[:, 0, 0].abs()), extra.factor))
+
+    ctrl.init_extra, ctrl.solve_with_extra = init_extra, solve_with_extra
+
+
+@pytest.mark.parametrize("broken", [None, "count", "factor"])
+def test_a_controller_with_carried_state_is_added_by_new_files_and_entries_alone(
+        tmp_path, monkeypatch, broken):
+    """A reference controller with carried state (benchmark/reference/
+    controller_stub.py: build, init, problem, advance), a configuration that
+    names it, a traffic mix, limits and a cell: files added and entries
+    added, no file of the benchmark edited. The cell runs on the CPU, the
+    reference steps the carried state through the hooks, and the comparison
+    judges it: correct, and not correct where the program's carried integer
+    or float departs from the reference's."""
+    from benchmark import program
+    from benchmark.reference.closed_loop import Reference
+
+    root, before = _checkout(tmp_path)
+    bench = root / "benchmark"
+    (bench / "reference" / "controller_stub.py").write_text(STUB)
+    cfg = dict(json.loads((bench / "configs" / "nominal.json").read_text()),
+               name="nominal_stub", reference_controller="stub")
+    (bench / "configs" / "nominal_stub.json").write_text(json.dumps(cfg))
+    (bench / "traffic" / "batch2.json").write_text(json.dumps(dict(
+        json.loads((bench / "traffic" / "batch128.json").read_text()), batch=2)))
+    # a batch of 2 has 2 pairs a sampled step: one pair off is too many
+    (bench / "limits" / "nominal_stub.b2.json").write_text(json.dumps(dict(
+        json.loads((bench / "limits" / "nominal.b128.json").read_text()), pairs_off=0)))
+    spec = json.loads(json.dumps(SPEC))
+    spec["configs"].append(dict(name="nominal_stub", source=cfg["source"],
+                                file="benchmark/configs/nominal_stub.json", reduced=[],
+                                why="carried state"))
+    spec["workloads"].append(dict(name="nominal_stub.b2", config="nominal_stub",
+                                  traffic="batch2", chips=1, why="carried state"))
+    spec["end_to_end"][0]["workloads"].append("nominal_stub.b2")
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+
+    ref = Reference(cfg, str(root))
+    assert all(getattr(ref.ctrl, h) is not None for h in ("init", "problem", "advance"))
+    x0 = torch.zeros(2, 8, dtype=torch.float64)
+    assert [t.tolist() for t in ref.init_extra(x0)] == [[0, 0], [2.0, 2.0]]
+
+    build = program.build
+
+    def carrying(ctx, batch):
+        sim, carry, lap_points = build(ctx, batch)
+        _carrying(sim, broken)
+        return sim, sim.init_carry(carry.x_est, carry.x_sim, key=ctx.seed), lap_points
+
+    monkeypatch.setattr(program, "build", carrying)
+    n = torch.get_num_threads()
+    try:
+        res = R.run_cell("nominal_stub.b2", 2**31 + 99, 1.0, False, device="cpu", root=str(root))
+    finally:
+        torch.set_num_threads(n)
+    c = res["compared"]
+    if broken is None:
+        assert res["correct"] is True, c
+    else:
+        assert res["correct"] is False, c
+        assert c["pairs_off"]["value"] >= 2 > c["pairs_off"]["limit"], c
     after = {p: p.read_bytes() for p in before}
     assert after == before
 

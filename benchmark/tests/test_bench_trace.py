@@ -152,9 +152,10 @@ def test_port_spans_differ_from_the_benchmarks(snap):
 
 @pytest.mark.parametrize("name", READERS)
 def test_entries_follow_the_contract(name):
-    """Each of the six entries under `per_layer` against the contract the
-    other per-layer metrics are held to in test_bench_spec.py, whose pinned
-    count of entries predates them."""
+    """Each of the six entries under `per_layer`, looked up by name, against
+    the contract the other per-layer metrics are held to in
+    test_bench_spec.py: its cells are cells of the end-to-end metric it
+    moves, wherever it stands in the list and whichever cells come later."""
     spec = R.load_spec()
     e2e = {m["name"]: m for m in spec["end_to_end"]}
     (m,) = [m for m in spec["per_layer"] if m["name"] == name]
@@ -164,9 +165,5 @@ def test_entries_follow_the_contract(name):
     assert (reader.UNIT, reader.LAYER, reader.MOVES) == (m["unit"], m["layer"], m["moves"])
     assert m["layer"] in {p["layer"] for p in spec["per_layer"] if p["name"] not in READERS}
     assert m["moves"] == ("cycle_ms_p95" if name.endswith(".serve") else "device_solves_per_s")
-    assert m["workloads"] == (["nominal.serve"] if name.endswith(".serve")
-                              else ["nominal.b128", "snmpc.b128"])
-    for w in m["workloads"]:
-        assert w in e2e[m["moves"]].get("workloads", [w])
-    assert spec["per_layer"][-len(READERS):] == [
-        p for n in READERS for p in spec["per_layer"] if p["name"] == n]
+    cells = {w["name"] for w in spec["workloads"]}
+    assert m["workloads"] and set(m["workloads"]) <= set(e2e[m["moves"]].get("workloads", cells))

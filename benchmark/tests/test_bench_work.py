@@ -36,6 +36,17 @@ def test_small_stages_by_hand():
     assert work.planner(SMALL, 10) == (5 * 10 + 10 + 60 + 20 * 3, (51 + 12) * 4)
 
 
+def test_the_disturbed_plant_and_its_draws_by_hand():
+    s = dict(SMALL, plant_integrations=2, drawn_numbers=15)
+    # two RK4s; the second adds its disturbance to each of its 16 evaluations
+    # and reads it; both write their state
+    assert work.plant(s) == (2 * 4 * (4 * 250 + 56) + 16 * 7, (7 + 2 + 7 + 7 + 7) * 4)
+    assert work.draws(s) == (15 * 4.0, 15 * 4)
+    w, w0 = work.step_work(s, 1, 10, 3), work.step_work(SMALL, 1, 10, 3)
+    assert "draws" not in w0 and set(w) == set(w0) | {"draws"}
+    assert w["step"][0] == w0["step"][0] + 8 * 1056 - 4 * 1056 + 16 * 7 + 60
+
+
 def test_stochastic_linearize_counts_the_sample_copies():
     s = dict(SMALL, n_samples=3, uncertainty_propagation_horizon=1)
     # 1 head stage x 4 copies + 1 tail stage, one substep each

@@ -13,7 +13,10 @@ fuses, removes or redesigns.
 
 `shapes` is a configuration file's `shapes` block (N, nx, nu, nz,
 general_rows; for the stochastic NMPC also n_samples and
-uncertainty_propagation_horizon), `lap_points` the reference lap's length.
+uncertainty_propagation_horizon; where the plant is disturbed
+plant_integrations, the plant RK4s of a step, 1 where absent, and
+drawn_numbers, the random numbers a scenario draws a step, 0 where absent),
+`lap_points` the reference lap's length.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ SHOOTING_SUBSTEPS = 3
 CON_FLOPS = 30.0      # one gg-constraint row's value (interpolation, division, square)
 LINE_SEARCH_POINTS = 9 + 45   # bracket points and bisections of the polish
 ROW_FLOPS = 100.0     # a Mehrotra iteration's elementwise work per constraint row
+DRAW_FLOPS = 4.0      # a drawn number's transform into its disturbance
 
 
 def planner(s: dict, M: int):
@@ -97,8 +101,19 @@ def qp_solve(s: dict, qp_iters: int, n_polish: int = 1):
 
 
 def plant(s: dict):
-    flops = PLANT_SUBSTEPS * (4 * ODE_FLOPS + 4 * 7 * 2)
-    return flops, (7 + 2 + 7) * F32
+    """One RK4 over the plant's 7 states per integration; the disturbed one
+    adds its disturbance to each derivative and writes its own state."""
+    k = s.get("plant_integrations", 1)
+    flops = k * PLANT_SUBSTEPS * (4 * ODE_FLOPS + 4 * 7 * 2) + (k - 1) * PLANT_SUBSTEPS * 4 * 7
+    return flops, (7 + 2 + 7 + (k - 1) * (7 + 7)) * F32
+
+
+def draws(s: dict):
+    """The disturbances' random numbers: each turned into its disturbance
+    (the ellipsoid's norm and scale, or the noise's scale and add) and
+    written once."""
+    n = s.get("drawn_numbers", 0)
+    return DRAW_FLOPS * n, n * F32
 
 
 def estimator(s: dict, buf: int = 15, nx: int = 8):
@@ -112,6 +127,8 @@ def step_work(shapes: dict, batch: int, lap_points: int, qp_iters: int) -> dict:
                condense=condense(shapes), qp_assembly=qp_assembly(shapes),
                qp_solve=qp_solve(shapes, qp_iters), plant=plant(shapes),
                estimator=estimator(shapes))
+    if shapes.get("drawn_numbers"):
+        per["draws"] = draws(shapes)
     out = {k: (f * batch, b * batch) for k, (f, b) in per.items()}
     out["step"] = (sum(f for f, _ in out.values()), sum(b for _, b in out.values()))
     return out
