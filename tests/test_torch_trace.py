@@ -1,5 +1,6 @@
 """The port's host spans (utils/trace.py) on the CPU: the span tree of a
-nominal and an SNMPC closed-loop step and of a served cycle, nested
+nominal, an SNMPC and an R2NMPC-under-WMPC closed-loop step and of a served
+cycle, nested
 intervals whose self times add up to the step, the spans as profiler
 annotations with the same nesting (and no annotation without a profiler),
 a step's outputs unchanged by the tracer, names apart from the benchmark's
@@ -31,6 +32,11 @@ CALLS = {
     "snmpc": {"tc.step": 1, "tc.planner": 1, "tc.rti.build_qp": 1, "tc.qp.iteration": 3,
               "tc.qp.polish": 1, "tc.plant": 1, "tc.estimator": 1},
 }
+# R2NMPC's tightening and the WMPC policy's update, every step
+CALLS["rnmpc_wmpc"] = dict(CALLS["nominal"], **{"tc.rnmpc.tighten": 1, "tc.wmpc.policy": 1})
+MPC = {"nominal": dict(controller="nominal"), "snmpc": dict(controller="snmpc"),
+       "rnmpc_wmpc": dict(controller="rnmpc", enable_WMPC=True,
+                          WMPC_model="data/wmpc_models/new_BO_F")}
 # the span names of the benchmark (benchmark/tracing.py: WRAPPED, the
 # controller's `solve` and the profiler window); a `tc.` name never equals one
 BENCHMARK_SPANS = ("planner", "plant_rk4", "estimate", "ipm", "polish", "solve", "bench.window")
@@ -44,15 +50,15 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-def _sim(controller):
-    sim, _, _, traj, _ = build_simulation(SimConfig(sim_mode=0), MPCConfig(controller=controller),
+def _sim(path):
+    sim, _, _, traj, _ = build_simulation(SimConfig(sim_mode=0), MPCConfig(**MPC[path]),
                                           device="cpu", dtype=torch.float64)
     return sim, traj
 
 
 @pytest.fixture(scope="module")
 def sims():
-    return {c: _sim(c) for c in ("nominal", "snmpc")}
+    return {c: _sim(c) for c in MPC}
 
 
 def _carry(sim, traj, batch):
@@ -74,8 +80,9 @@ class StubExecutor:
 
 @pytest.fixture(scope="module")
 def recorded(sims):
-    """Two nominal steps, one SNMPC step and two served cycles, each a
-    record of its own: (the snapshot, the stub executor)."""
+    """Two nominal steps, one SNMPC step, one R2NMPC-under-WMPC step and two
+    served cycles, each a record of its own: (the snapshot, the stub
+    executor)."""
     trace.set_enabled(True)
     trace.reset()
     sim, traj = sims["nominal"]
@@ -86,6 +93,8 @@ def recorded(sims):
     sim_s, traj_s = sims["snmpc"]
     carry_s = _carry(sim_s, traj_s, 2)
     sim_s.step(carry_s, z, z)
+    sim_w, traj_w = sims["rnmpc_wmpc"]
+    sim_w.step(_carry(sim_w, traj_w, 2), z, z)
     ex = StubExecutor()
     deploy_rt.run_synchronous(sim, _carry(sim, traj, 1), ex, 2)
     return trace.snapshot(), ex
@@ -103,10 +112,11 @@ def _calls(spans):
     return out
 
 
-@pytest.mark.parametrize("controller, records", [("nominal", (0, 1)), ("snmpc", (2,))])
+@pytest.mark.parametrize("controller, records", [("nominal", (0, 1)), ("snmpc", (2,)),
+                                                 ("rnmpc_wmpc", (3,))])
 def test_steps_record_the_span_tree(recorded, controller, records):
     snap, _ = recorded
-    assert [r[0] for r in snap["records"]] == ["tc.step"] * 3 + ["tc.cycle"] * 2
+    assert [r[0] for r in snap["records"]] == ["tc.step"] * 4 + ["tc.cycle"] * 2
     for r in records:
         root, index, totals = snap["records"][r]
         _, spans = snap["spans"][r]
@@ -136,8 +146,8 @@ def test_spans_nest_and_self_times_add_up_to_the_record(recorded):
 def test_served_cycles_record_their_spans(recorded):
     snap, ex = recorded
     assert len(ex.records) == 2
-    for i, (index, spans) in enumerate(snap["spans"][3:]):
-        assert index == i and snap["records"][3 + i][1] == i
+    for i, (index, spans) in enumerate(snap["spans"][4:]):
+        assert index == i and snap["records"][4 + i][1] == i
         tree = _tree(spans)
         assert tree[0] == ("tc.cycle", None)
         assert [n for n, p in tree if p == "tc.cycle"] == ["tc.step", "tc.cycle.fetch"]
@@ -146,7 +156,7 @@ def test_served_cycles_record_their_spans(recorded):
 def test_names_differ_from_the_benchmarks_spans(recorded):
     snap, _ = recorded
     names = set().union(*(totals for _, _, totals in snap["records"]))
-    assert names == set(CALLS["nominal"]) | set(CALLS["snmpc"]) | {"tc.cycle", "tc.cycle.fetch"}
+    assert names == set().union(*CALLS.values()) | {"tc.cycle", "tc.cycle.fetch"}
     assert all(n.startswith(trace.PREFIX) for n in names)
     assert not names & set(BENCHMARK_SPANS)
     with pytest.raises(ValueError, match="tc."):
@@ -193,8 +203,7 @@ def test_spans_are_profiler_annotations_with_the_same_nesting(sims, tmp_path, mo
     assert opened == []
 
 
-def test_outputs_equal_with_the_tracer_off(sims):
-    sim, traj = sims["nominal"]
+def _outputs_equal_with_the_tracer_off(sim, traj):
     carry = _carry(sim, traj, 2)
     z = torch.zeros_like(carry.x_sim)
     outs = {}
@@ -210,6 +219,15 @@ def test_outputs_equal_with_the_tracer_off(sims):
     on, off = flat(outs[True]), flat(outs[False])
     assert len(on) == len(off) > 10
     assert all(torch.equal(a, b) for a, b in zip(on, off))
+
+
+def test_outputs_equal_with_the_tracer_off(sims):
+    _outputs_equal_with_the_tracer_off(*sims["nominal"])
+
+
+def test_wmpc_outputs_equal_with_the_tracer_off(sims):
+    """R2NMPC under WMPC: its tightening and policy spans change no output."""
+    _outputs_equal_with_the_tracer_off(*sims["rnmpc_wmpc"])
 
 
 def test_storage_keeps_the_last_records():

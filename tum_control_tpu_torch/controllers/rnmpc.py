@@ -28,6 +28,7 @@ from tum_control_tpu_torch.controllers.common import GGTables, acc_constraints
 from tum_control_tpu_torch.controllers.nominal import NominalNMPC
 from tum_control_tpu_torch.ops.rti import QPMods, RTIState, jacobian_fwd
 from tum_control_tpu_torch.params import TireParams, VehicleParams
+from tum_control_tpu_torch.utils.trace import span
 
 
 class RobustExtra(NamedTuple):
@@ -122,13 +123,15 @@ class ReducedRobustNMPC(NominalNMPC):
     def solve_with_extra(self, state: RTIState, extra: RobustExtra, x0, ref_window,
                          mods: QPMods = None):
         """One RTI under the carried tightening. Returns (ControllerOutput,
-        new RTIState, new RobustExtra)."""
+        new RTIState, new RobustExtra). The new corrections are the span
+        `tc.rnmpc.tighten` (utils/trace.py)."""
         yref, yref_e = self.make_yref(ref_window)
         mods = self._mods_from_extra(extra, mods)
         u0, new_state, st, A_lin = self.engine.solve_full(state, x0, yref, yref_e, mods)
-        new_extra = self._propagate(A_lin, new_state.X, extra)
-        ok = st.status == 0
-        new_extra = RobustExtra(*(
-            torch.where(ok.view((-1,) + (1,) * (n.dim() - 1)), n, o)
-            for n, o in zip(new_extra, extra)))
+        with span("tc.rnmpc.tighten"):
+            new_extra = self._propagate(A_lin, new_state.X, extra)
+            ok = st.status == 0
+            new_extra = RobustExtra(*(
+                torch.where(ok.view((-1,) + (1,) * (n.dim() - 1)), n, o)
+                for n, o in zip(new_extra, extra)))
         return self._output(u0, new_state, st), new_state, new_extra

@@ -27,6 +27,7 @@ import torch
 from tum_control_tpu_torch.learn.observation import ObservationBuilder, ObservationConfig
 from tum_control_tpu_torch.learn.policy import MLPPolicy
 from tum_control_tpu_torch.ops.rti import QPMods
+from tum_control_tpu_torch.utils.trace import span
 
 
 class WMPCExtra(NamedTuple):
@@ -48,6 +49,7 @@ class WMPCController:
                  obs_cfg: ObservationConfig, update_period: int = 20, n_stack: int = 1):
         eng = base.engine
         self.base = base
+        self.vp = base.vp   # the prediction model's vehicle, as the base controllers expose it
         self.policy = policy
         self.param_table = torch.as_tensor(np.asarray(param_table), dtype=eng.W.dtype,
                                            device=eng.W.device)   # (n_actions, 7)
@@ -95,8 +97,8 @@ class WMPCController:
 
     def solve_with_extra(self, state, extra: WMPCExtra, x0, ref_window, mods: QPMods = None):
         """One solve of the base controller under the current weights, then
-        the weight-update check. Returns (ControllerOutput, new state, new
-        WMPCExtra)."""
+        the weight-update check, the span `tc.wmpc.policy` (utils/trace.py).
+        Returns (ControllerOutput, new state, new WMPCExtra)."""
         # A base with its own extra (R2NMPC's tightening) composes: these
         # weight mods merge with its bound mods. Fields the caller sets in
         # `mods` take precedence over the policy's own.
@@ -111,32 +113,33 @@ class WMPCController:
             new_base = None
 
         # --- weight update check (the tail of the reference's solve) ---
-        update = extra.steps >= self.period                           # (B,)
-        yaw = x0[:, 2]
-        dx = ref_window.pos[:, 0, 0] - x0[:, 0]
-        dy = ref_window.pos[:, 0, 1] - x0[:, 1]
-        lat_dev = torch.sin(-yaw) * dx + torch.cos(-yaw) * dy
-        vel_dev = x0[:, 3] - ref_window.v[:, 0]
-        obs_new = self.observe(lat_dev, vel_dev, ref_window)
-        n_obs = self.obs_cfg.n_observations
-        stacked = (torch.cat([extra.obs[:, n_obs:], obs_new], dim=1) if self.n_stack > 1
-                   else obs_new)
-        obs = torch.where(update[:, None], stacked, extra.obs)
-        action = torch.where(update, self.policy.predict(obs).to(torch.int32), extra.action)
-        p = self.param_table[action]                                  # (B, 7)
-        # no 0.01 factor (the reference's update_cost_function_weights)
-        We_new = torch.stack([p[:, 0], p[:, 0], p[:, 1], p[:, 2]], dim=1)
-        W_new = torch.cat([We_new, p[:, 3:5]], dim=1)
-        new_extra = WMPCExtra(
-            steps=torch.where(update, 1, extra.steps + 1).to(torch.int32),
-            obs=obs,
-            action=action,
-            W=torch.where(update[:, None], W_new, extra.W),
-            We=torch.where(update[:, None], We_new, extra.We),
-            L1=torch.where(update, p[:, 5], extra.L1),
-            L2=torch.where(update, p[:, 6], extra.L2),
-            base=new_base,
-        )
+        with span("tc.wmpc.policy"):
+            update = extra.steps >= self.period                       # (B,)
+            yaw = x0[:, 2]
+            dx = ref_window.pos[:, 0, 0] - x0[:, 0]
+            dy = ref_window.pos[:, 0, 1] - x0[:, 1]
+            lat_dev = torch.sin(-yaw) * dx + torch.cos(-yaw) * dy
+            vel_dev = x0[:, 3] - ref_window.v[:, 0]
+            obs_new = self.observe(lat_dev, vel_dev, ref_window)
+            n_obs = self.obs_cfg.n_observations
+            stacked = (torch.cat([extra.obs[:, n_obs:], obs_new], dim=1) if self.n_stack > 1
+                       else obs_new)
+            obs = torch.where(update[:, None], stacked, extra.obs)
+            action = torch.where(update, self.policy.predict(obs).to(torch.int32), extra.action)
+            p = self.param_table[action]                              # (B, 7)
+            # no 0.01 factor (the reference's update_cost_function_weights)
+            We_new = torch.stack([p[:, 0], p[:, 0], p[:, 1], p[:, 2]], dim=1)
+            W_new = torch.cat([We_new, p[:, 3:5]], dim=1)
+            new_extra = WMPCExtra(
+                steps=torch.where(update, 1, extra.steps + 1).to(torch.int32),
+                obs=obs,
+                action=action,
+                W=torch.where(update[:, None], W_new, extra.W),
+                We=torch.where(update[:, None], We_new, extra.We),
+                L1=torch.where(update, p[:, 5], extra.L1),
+                L2=torch.where(update, p[:, 6], extra.L2),
+                base=new_base,
+            )
         return out, new_state, new_extra
 
 
