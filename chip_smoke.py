@@ -19,7 +19,10 @@ Phases (any failure raises and the script exits non-zero):
      table, at the nominal shape and at the SNMPC's at UPH 15, 15 x 11 + 23
      elements, after a bitwise check of the table launch against the
      shared-tire launch on the same values; K6 also at the UPH 15 tail, 23
-     stages from column 30) on inputs from a seeded numpy generator, holds it against its plain
+     stages from column 30; the plant's RK4 at PLANT_BATCHES, and at B = 128
+     with a derivative disturbance and with one tire set per scenario, also
+     printed against its float64 plain version) on inputs from a seeded
+     numpy generator, holds it against its plain
      PyTorch version on the same inputs (K3 and K7 also on an
      ill-conditioned IPM-shaped H, by backward error; K4 also on that H's
      factor, a late iteration's, against the float64 plain version within
@@ -210,6 +213,12 @@ STATE_SPREAD = np.array([0.5, 0.5, 0.05, 1, 0.1, 0.05, 0.02, 0.5])
 # the entry paths' batches, at which kernel_phase also holds K1-K5: one
 # scenario (main, main_playback, policy) and the sweep's 26 sets x 2 laps
 ENTRY_BATCHES = (1, 52)
+# the plant's RK4 kernel (csrc/plant.cu) in the kernel phase: one scenario
+# (main.py, the served cycle), SafeRL_WMPC's 16 rollouts and the batch cells'
+# 128; its operations: 4 model evaluations a substep of ~250 each
+# (benchmark/work.py's ODE_FLOPS) and the RK4's 4 x 8 multiply-adds
+PLANT_BATCHES = (128, 16, 1)
+PLANT_ODE_OPS = 250
 # per path: settle steps, timed steps, steps rerun on the CPU (WMPC: 25, so
 # that its first policy update, at step 20, falls inside)
 PATHS = {"nominal": (50, 300, 20), "snmpc": (50, 200, 10), "rnmpc": (50, 200, 10),
@@ -259,11 +268,14 @@ FULL_LOGS = {"MPC_SimX": (1, 8), "CiLX": (1, 7), "simU": (0, 2), "simREF": (0, 4
 # estimator's per-step host sync was removed (H100 80GB HBM3, 700 W),
 # printed beside this run's
 EARLIER_NOMINAL_STEP_MS = 51.357
-# the kernels each path must launch; every other counter must stay 0
-NOMINAL_KERNELS = ("linearize", "condense", "cholesky", "chol_solve", "ipm_iteration")
+# the kernels each path must launch; every other counter must stay 0. One
+# RTI solve of the nominal NMPC launches SOLVE_KERNELS; a closed-loop step
+# (sim_mode 0) adds the plant's RK4
+SOLVE_KERNELS = ("linearize", "condense", "cholesky", "chol_solve", "ipm_iteration")
+NOMINAL_KERNELS = SOLVE_KERNELS + ("plant",)
 PATH_KERNELS = {
     "nominal": NOMINAL_KERNELS,
-    "snmpc": ("linearize", "condense_from", "cholesky", "chol_solve", "ipm_iteration"),
+    "snmpc": ("linearize", "condense_from", "cholesky", "chol_solve", "ipm_iteration", "plant"),
     "rnmpc": NOMINAL_KERNELS,
     "wmpc_rnmpc": NOMINAL_KERNELS,
     "nominal_external": NOMINAL_KERNELS,
@@ -278,12 +290,12 @@ PATH_KERNELS = {
     # (JAX's rule: only n_id = nz reaches the kernel); the six compositions of
     # the dry run include the SNMPC; the entry step is one nominal solve
     "bench": ("linearize", "condense", "condense_from", "cholesky", "chol_solve",
-              "ipm_iteration"),
+              "ipm_iteration", "plant"),
     "qp/newton": ("cholesky", "chol_solve"),
     "qp/ipm": ("cholesky", "chol_solve"),
     "dryrun": ("linearize", "condense", "condense_from", "cholesky", "chol_solve",
-               "ipm_iteration"),
-    "dryrun/entry": NOMINAL_KERNELS,
+               "ipm_iteration", "plant"),
+    "dryrun/entry": SOLVE_KERNELS,
 }
 # the benchmark entry, the solver API's QPs and the dry run, each a path of its own
 API = ("bench", "qp/newton", "qp/ipm", "dryrun", "dryrun/entry")
@@ -475,7 +487,7 @@ FIT_RUNS = [("golden_attribution", ["--steps", "200", "--T", "0.5"]),
             ("fit_tires_closedloop", ["--n-chunks", "2", "--chunk-len", "6", "--skip", "2",
                                       "--steps", "2"])]
 FIT_KERNELS = ("linearize", "condense", "condense_from", "cholesky", "chol_solve",
-               "ipm_iteration")
+               "ipm_iteration", "plant")
 # the card's first loss terms against the CPU's float64 ones: both ratios
 # within TOL_FIT_TERMS relative, the solver-ok shares equal. A trace (the
 # mean square of |dev_lat| minus the golden's) is a difference of two
@@ -505,7 +517,7 @@ FIT_TERMS = ("loss", "rn", "rs", "tn", "ts", "okn", "oks")
 # directions go through a factor of cond ~1e3), so TOL leaves 10-30x of room
 TOL = {"linearize": 2e-5, "condense": 2e-5, "condense_from": 2e-5, "cholesky": 2e-5,
        "chol_solve": 2e-5, "ipm_iteration": 1e-4, "condense_mxu": 2e-5,
-       "cholesky_unblocked": 2e-5, "chol_solve_unblocked": 2e-5}
+       "cholesky_unblocked": 2e-5, "chol_solve_unblocked": 2e-5, "plant": 2e-5}
 # K3 and K7 on an ill-conditioned H (cond ~1e7-1e8): max |L L^T - H| / max |H|,
 # against n eps ~4.5e-6 at n = 76
 BACKWARD_TOL = 2e-5
@@ -545,6 +557,8 @@ REPLACES = {
     "condense_mxu": "tum_control_tpu/ops/pallas_kernels/condense.py:178",
     "cholesky_unblocked": "tum_control_tpu/ops/pallas_kernels/chol.py:33",
     "chol_solve_unblocked": "tum_control_tpu/ops/pallas_kernels/chol.py:58",
+    "plant": "none: the JAX package integrates the plant in plain JAX "
+             "(tum_control_tpu/sim/closed_loop.py:152)",
 }
 SOURCE = {
     "linearize": "tum_control_tpu_torch/csrc/linearize.cu",
@@ -556,6 +570,7 @@ SOURCE = {
     "condense_mxu": "tum_control_tpu_torch/csrc/condense.cu",
     "cholesky_unblocked": "tum_control_tpu_torch/csrc/chol.cu",
     "chol_solve_unblocked": "tum_control_tpu_torch/csrc/chol.cu",
+    "plant": "tum_control_tpu_torch/csrc/plant.cu",
 }
 
 
@@ -757,6 +772,47 @@ def ipm_shaped_h(rng, batch, nz, ncg):
     return (0.5 * (H + H.transpose(0, 2, 1))).astype(np.float32)
 
 
+def plant_case(batch, tires="shared", device="cpu", dtype=torch.float64, seed=20):
+    """(Plant, x (batch, 7), u (batch, 2), w (batch, 7)) of the simulator's
+    vehicle on `device` in `dtype`, drawn from `seed` alone: states about
+    curvature-consistent lap starts spread by STATE_SPREAD, every eighth row
+    from the fourth starting below VLONG_EPS (the low-speed guard), every
+    eighth from the sixth at +-12 m/s^2 (the rear axle's combined-slip clamp,
+    0.98 of Fmax_r, lies at ~8.6), u's steering rate ~0.1 rad/s, w uniform
+    within the shipped derivative disturbance's magnitudes. Tires "shared"
+    (floats: the shipped set), "one" (0-d tensors, the shipped set x 1.02: a
+    table of one row) or "per" (one set a scenario, the shipped set times
+    exp(theta_b), theta_b ~ N(0, 0.05^2): a table of `batch` rows)."""
+    from tum_control_tpu_torch.config import (
+        DEFAULT_CONFIG_PATH, SimConfig, load_tire_params, load_vehicle_params,
+    )
+    from tum_control_tpu_torch.models.vehicle_stm import VLONG_EPS
+    from tum_control_tpu_torch.ops.kernels.plant import Plant
+    from tum_control_tpu_torch.parallel.mesh import batched_scenarios
+    from tum_control_tpu_torch.sim.closed_loop import PLANT_SUBSTEPS
+    from tum_control_tpu_torch.track.trajectory import load_ref_trajectory
+
+    cfg = SimConfig()
+    rng = np.random.default_rng(seed)
+    traj = load_ref_trajectory(os.path.join(cfg.trajectory_path, cfg.ref_traj_file),
+                               torch.float64, device="cpu")
+    x = batched_scenarios(traj, batch, dtype=torch.float64)[1].numpy()
+    x = x + rng.normal(0, 1, (batch, 7)) * STATE_SPREAD[:7]
+    x[3::8, 3] = rng.uniform(-VLONG_EPS, VLONG_EPS, len(x[3::8]))
+    u = rng.normal(0, 1, (batch, 2)) * [1.0, 0.1]
+    u[5::8, 0] = 12.0 * np.sign(rng.normal(0, 1, len(u[5::8])))
+    w = rng.uniform(-1, 1, (batch, 7)) * np.array(cfg.w_derivatives)
+    theta = rng.normal(0, 0.05, (batch, 8))
+    vp = load_vehicle_params(DEFAULT_CONFIG_PATH, cfg.veh_params_file_simulator)
+    tp = load_tire_params(DEFAULT_CONFIG_PATH, cfg.tire_params_file_simulator)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)
+    if tires == "one":
+        tp = type(tp)(*(t(v * 1.02) for v in tp[:8]), mu=tp.mu)
+    elif tires == "per":
+        tp = type(tp)(*t(np.exp(np.log(np.array(tp[:8])) + theta).T).unbind(0), mu=tp.mu)
+    return Plant(vp, tp, cfg.Ts, PLANT_SUBSTEPS), t(x), t(u), t(w)
+
+
 def backward_error(L, H):
     """max over the batch of max |L L^T - H| / max |H|, in float64."""
     Ld, Hd = L.double(), H.double()
@@ -779,6 +835,7 @@ def kernel_phase(dev):
     from tum_control_tpu_torch.ops.kernels.linearize import (
         LinearizeRollout, linearize_cuda, linearize_ref,
     )
+    from tum_control_tpu_torch.ops.kernels.plant import plant_cuda, plant_ref
     from tum_control_tpu_torch.parallel.mesh import batched_scenarios
     from tum_control_tpu_torch.params import TireParams
     from tum_control_tpu_torch.track.trajectory import load_ref_trajectory
@@ -1139,6 +1196,34 @@ def kernel_phase(dev):
     record("condense_from", err, lambda: condense_from_cuda(*args15),
            lambda: condense_from_ref(*args15), nbytes(At, Bt, xit, e0, G0, e6, G6), ops,
            case="uph15")
+
+    # the plant's RK4 (one launch a closed-loop step) at PLANT_BATCHES, then
+    # at B = 128 with a derivative disturbance and with one tire set per
+    # scenario (its table); each state component held against the float32
+    # plain version on the card, and printed against the float64 one
+    def hold_plant(batch, tires, disturbed, case):
+        plant, x, u, w = plant_case(batch, tires, dev, torch.float32)
+        w = w if disturbed else None
+        kern = functools.partial(plant_cuda, x, u, w, plant.prm, plant.n_sub, plant.table)
+        plain = functools.partial(plant_ref, x, u, w, plant.vp, plant.tp, plant.dt, plant.n_sub)
+        out, ref = kern(), plain()
+        err = compare("plant", [(f"x[:, {i}]", out[:, i], ref[:, i]) for i in range(7)])
+        p64, x64, u64, w64 = plant_case(batch, tires)
+        ref64 = plant_ref(x64, u64, w64 if disturbed else None, p64.vp, p64.tp, p64.dt,
+                          p64.n_sub)
+        vs64 = max(float((out[:, i].double().cpu() - ref64[:, i]).abs().max())
+                   / float(ref64[:, i].abs().max()) for i in range(7))
+        say(f"[plant/{case}] against the float64 plain version: worst state {vs64:.3e} of its "
+            "max")
+        table = () if plant.table is None else (plant.table,)
+        ops = batch * plant.n_sub * (4 * PLANT_ODE_OPS + 4 * 8 * 2)
+        record("plant", err, kern, plain, nbytes(x, u, out, *table, *(() if w is None else (w,))),
+               ops, case=case, extra=dict(max_rel_err_f64=vs64))
+
+    for batch in PLANT_BATCHES:
+        hold_plant(batch, "shared", False, f"b{batch}")
+    hold_plant(B, "shared", True, "disturbed")
+    hold_plant(B, "per", False, "tires")
     return results, jobs
 
 
@@ -2824,7 +2909,8 @@ def fit_argv(name, argv):
 
 
 def check_fit_launches(tag, launches):
-    """K1-K6 of the nominal NMPC and the SNMPC, and no other kernel."""
+    """K1-K6 of the nominal NMPC and the SNMPC and the plant's RK4, and no
+    other kernel."""
     for name, n in launches.items():
         if name in FIT_KERNELS:
             check(n > 0, f"{tag}: kernel {name} was not launched")

@@ -15,6 +15,10 @@ main.py's closed loop): K1 and K4 at that shape, and 5 steps of the entry
 module's run_main through K1-K5. The tire gradient through K1-K5 (their
 backward the plain versions' VJP) against the CPU. Two tools: profile_step's
 per-stage kernel counts, and diag_precision --tf32 restoring the flags.
+The plant's RK4 kernel against its plain version in float32 and float64
+(starts below VLONG_EPS, rows at the combined-slip clamp, a derivative
+disturbance, tire tables of one and of B rows), its dispatch, and its two
+launches a step in a disturbed loop.
 K1 with one tire set per scenario (its tire table) against its plain
 version, against one shared-tire launch per member, and the table launch
 bitwise against the shared-tire launch on the same values; one step of the
@@ -47,12 +51,13 @@ import pytest
 import torch
 
 from chip_smoke import (
-    BACKWARD_TOL, NOMINAL_KERNELS, PATH_CONFIG, TOL_ENV, TOL_GRAD, TOL_OBJ, TRACKS_BO,
+    BACKWARD_TOL, LATE_FACTOR, NOMINAL_KERNELS, PATH_CONFIG, TOL_ENV, TOL_GRAD, TOL_OBJ, TRACKS_BO,
     backward_error, diffmode_gradient, diffmode_references, grad_gap, ipm_shaped_h, ipm_start,
-    k4_args, make_env, random_qp, stacked_laps, without_sync,
+    k4_args, make_env, plant_case, random_qp, stacked_laps, without_sync,
 )
 from tum_control_tpu_torch.api import build_controller, build_simulation
 from tum_control_tpu_torch.config import MPCConfig, SimConfig
+from tum_control_tpu_torch.models.integrators import rk4_multistep
 from tum_control_tpu_torch.ops.kernels import build
 from tum_control_tpu_torch.ops.kernels.chol import (
     MAX_N_CHOL, chol_plan, chol_solve, chol_solve_plan, chol_solve_ref, chol_solve_unblocked,
@@ -64,6 +69,7 @@ from tum_control_tpu_torch.ops.kernels.condense import (
 )
 from tum_control_tpu_torch.ops.kernels.ipm_iter import fused_iteration, ipm_plan, iteration_ref
 from tum_control_tpu_torch.ops.kernels.linearize import linearize_plan, linearize_ref
+from tum_control_tpu_torch.ops.kernels.plant import plant_ref
 from tum_control_tpu_torch.parallel.mesh import batched_scenarios
 from tum_control_tpu_torch.track.trajectory import load_ref_trajectory
 
@@ -521,11 +527,91 @@ def test_linearize_plan_matches_the_kernel(dev):
     assert lib.linearize_launch_plan(0, out) == -1
 
 
+@pytest.mark.parametrize("disturbed", [False, True])
+@pytest.mark.parametrize("tires", ["shared", "one", "per"])
+@pytest.mark.parametrize("B", [1, 16, 128, 1024])
+def test_plant_kernel(dev, B, tires, disturbed):
+    """The plant's RK4 kernel (csrc/plant.cu), as the closed loop calls it
+    (rk4_multistep over the plant's ODE), against its plain version on the
+    same inputs in float32 on the card and in float64 on the CPU: each state
+    component to 2e-5 of its max |plain| (K1's tolerance), over starts below
+    VLONG_EPS and rows at the combined-slip clamp (chip_smoke.plant_case),
+    with and without a derivative disturbance, with shared tires and with
+    tire tables of one and of B rows; one launch. Where float32 itself
+    cannot resolve 2e-5, the bound is LATE_FACTOR times the float32 plain
+    version's own distance from float64, the larger of its distances on the
+    card and on the CPU (chip_smoke's rule for K4's late
+    iteration: two float32 evaluations, each within its rounding of the
+    exact result, lie within twice that of each other): from a standstill
+    start the tire forces at a few mm/s make the step stiff (dFy/dvlat ~
+    B C D / vlong), and at B = 1024 with one tire set a scenario the CPU's
+    float32 plain version parts from float64 by 8.8e-5 of vlat's max on one
+    such row, and the card's float32 plain version from the kernel by
+    7.9e-5; elsewhere that distance is below 6e-6 and the bound 2e-5."""
+    plant, x, u, w = plant_case(B, tires, dev, torch.float32)
+    w = w if disturbed else None
+    assert (plant.table is None) == (tires == "shared")
+    if tires != "shared":
+        assert plant.table.shape == (1 if tires == "one" else B, 12)
+    build.reset_launches()
+    out = rk4_multistep(plant.ode(w), x, u, plant.dt, plant.n_sub)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["plant"] == 1
+    ref32 = plant_ref(x, u, w, plant.vp, plant.tp, plant.dt, plant.n_sub)
+    refs = {}
+    for dt in (torch.float32, torch.float64):
+        pc, xc, uc, wc = plant_case(B, tires, "cpu", dt)
+        refs[dt] = plant_ref(xc, uc, wc if disturbed else None, pc.vp, pc.tp, pc.dt,
+                             pc.n_sub).to(dev)
+    ref64 = refs[torch.float64]
+    for i in range(7):
+        r64 = ref64[:, i]
+        own = max(float((r[:, i].double() - r64).abs().max() / r64.abs().max())
+                  for r in (ref32, refs[torch.float32]))
+        tol = max(2e-5, LATE_FACTOR * own)
+        _held(out[:, i], ref32[:, i], tol)
+        _held(out[:, i], r64, tol)
+
+
+def test_plant_kernel_dispatch(dev):
+    """The plant's wrapper takes strided CUDA float32 inputs (a played-back
+    disturbance is a slice of its recording) and refuses float64 and mixed
+    devices, before any launch."""
+    plant, x, u, w = plant_case(8, "shared", dev, torch.float32)
+    rec = torch.stack([torch.zeros_like(w), w], dim=1)  # (B, 2, 7): rec[:, 1] is strided
+    build.reset_launches()
+    _held(plant.integrate(x, u, rec[:, 1], plant.dt, plant.n_sub),
+          plant.integrate(x, u, w, plant.dt, plant.n_sub))
+    assert build.LAUNCHES["plant"] == 2
+    with pytest.raises(TypeError):
+        plant.integrate(x.double(), u.double(), None, plant.dt, plant.n_sub)
+    with pytest.raises(ValueError):
+        plant.integrate(x, u.cpu(), None, plant.dt, plant.n_sub)
+    assert build.LAUNCHES["plant"] == 2
+
+
+def test_disturbed_closed_loop_launches_the_plant_twice_a_step(dev):
+    """With derivative disturbances and estimation noise on, each step
+    launches the plant twice (the nominal and the disturbed integration),
+    and the disturbed state is the nominal one moved by the draw."""
+    sim, _, _, traj, _ = build_simulation(
+        SimConfig(sim_mode=0, simulate_disturbances=True, simulate_state_estimation=True),
+        MPCConfig())
+    x0m, x0s = batched_scenarios(traj, 4, dtype=torch.float32, device=dev)
+    build.reset_launches()
+    carry, log = sim.run(x0m, x0s, 3)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["plant"] == 6
+    assert (log.dist_deriv != 0).any() and torch.isfinite(log.DisturbedX).all()
+    assert not torch.equal(log.DisturbedX, log.CiLX)
+
+
 # launches over 5 closed-loop steps, per path of chip_smoke.PATH_CONFIG: one K1 and one
-# condensing launch per step, 3 IPM iterations (K3 + K4) and one polish (K3 + K5)
+# condensing launch per step, 3 IPM iterations (K3 + K4), one polish (K3 + K5) and the
+# plant's RK4
 NOMINAL_LAUNCHES = {"linearize": 5, "condense": 5, "condense_from": 0, "cholesky": 20,
                     "chol_solve": 5, "ipm_iteration": 15, "condense_mxu": 0,
-                    "cholesky_unblocked": 0, "chol_solve_unblocked": 0}
+                    "cholesky_unblocked": 0, "chol_solve_unblocked": 0, "plant": 5}
 PATH_LAUNCHES = {
     "nominal": NOMINAL_LAUNCHES,
     "snmpc": dict(NOMINAL_LAUNCHES, condense=0, condense_from=5),
@@ -682,13 +768,15 @@ def test_diag_precision_tf32_restores_the_flags(dev):
 def test_profile_step_counts_each_stage_on_the_card(dev):
     """profile_step at B = 4 on the card: every stage's profiler window
     holds device kernels; the QP stages launch K1-K5 (build_qp K1 and K2,
-    the IPM K3-K5), the planner none of them."""
+    the IPM K3-K5), the planner none of them, plant+estimator the loop's
+    own plant kernel once."""
     from tum_control_tpu_torch.tools import profile_step
 
     res = profile_step.main(["4", "--repeats", "2"])["nominal"]
     for name, r in res.items():
         assert r["kernels"] > 0 and r["device_ms"] > 0 and r["ms"] > 0, name
     assert res["planner"]["launches"] == {}
+    assert res["plant+estimator"]["launches"] == {"plant": 1}
     assert set(res["build_qp"]["launches"]) == {"linearize", "condense"}
     assert set(res["ipm+polish"]["launches"]) == {"cholesky", "ipm_iteration", "chol_solve"}
     assert set(res["full step"]["launches"]) == set(NOMINAL_KERNELS)
@@ -1067,13 +1155,15 @@ def test_dyn_step_linearization_makes_no_host_sync(dev):
 
 def test_bench_measure_launches_every_path_kernel(dev):
     """bench.py's protocol at B = 128 (a few steps): the nominal NMPC and
-    the R2NMPC launch K1-K5, the SNMPC K1, K3-K6; every controller solves."""
+    the R2NMPC launch K1-K5, the SNMPC K1, K3-K6, each loop the plant's
+    RK4; every controller solves."""
     from tum_control_tpu_torch import bench
 
     build.reset_launches()
     res = bench.measure(128, 3, 2, device=dev)
     assert {k for k, v in build.LAUNCHES.items() if v} == {
-        "linearize", "condense", "condense_from", "cholesky", "chol_solve", "ipm_iteration"}
+        "linearize", "condense", "condense_from", "cholesky", "chol_solve", "ipm_iteration",
+        "plant"}
     assert res["ok"] >= 0.99 and all(c["ok"] >= 0.99 for c in res["controllers"].values())
     assert res["solves_per_sec"] > 0 and res["single_ms"] > 0
 

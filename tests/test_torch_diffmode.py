@@ -8,8 +8,9 @@ On the card each wrapper launches its kernel inside
 `kernel_with_plain_vjp`, whose backward is the VJP of the plain version at
 the saved inputs. Here there is no card, so `_fake_kernels` sends every
 wrapper down that branch with a stand-in "kernel": the plain version run
-without autograd from what the kernel receives (K1: its packed parameter
-block, and its tire table for tensor-valued tires), counted as a launch. Gradients through that route equal the plain
+without autograd from what the kernel receives (K1 and the plant's RK4:
+the packed parameter block, and the tire table for tensor-valued tires),
+counted as a launch. Gradients through that route equal the plain
 route's to 1e-10 of max |g| (TOL_ROUTE: the same float64 operations,
 recomputed).
 
@@ -29,12 +30,13 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import plant_case
 from tum_control_tpu_torch.api import build_simulation
 from tum_control_tpu_torch.config import (
     DEFAULT_CONFIG_PATH, MPCConfig, SimConfig, load_tire_params, load_vehicle_params,
 )
 from tum_control_tpu_torch.ops.diffmode import kernel_with_plain_vjp
-from tum_control_tpu_torch.ops.kernels import build, chol, condense, ipm_iter, linearize
+from tum_control_tpu_torch.ops.kernels import build, chol, condense, ipm_iter, linearize, plant
 from tum_control_tpu_torch.ops.kernels.linearize import LinearizeRollout, kernel_params
 from tum_control_tpu_torch.parallel.mesh import batched_scenarios
 from tum_control_tpu_torch.params import TireParams, scaled_tire_params
@@ -61,6 +63,10 @@ def _tp0():
 
 def _vp():
     return load_vehicle_params(DEFAULT_CONFIG_PATH, SimConfig().veh_params_file_MPC)
+
+
+def _vp_sim():
+    return load_vehicle_params(DEFAULT_CONFIG_PATH, SimConfig().veh_params_file_simulator)
 
 
 def _loss(tp):
@@ -104,17 +110,25 @@ def _fake_kernels(monkeypatch):
         return linearize.linearize_ref(XU, step, nx)
 
     monkeypatch.setattr(linearize, "linearize_cuda", _counted("linearize", lin))
+    vp_sim = _vp_sim()
+
+    def rk4(x, u, w, prm, n_sub, tires=None):  # the plant's kernel: its block and table
+        tp = TireParams(*(list(prm)[14:22] if tires is None else tires[0, :8]), mu=mu)
+        return plant.plant_ref(x, u, w, vp_sim, tp, list(prm)[26] * n_sub, n_sub)
+
+    monkeypatch.setattr(plant, "plant_cuda", _counted("plant", rk4))
     build.reset_launches()
 
 
 def test_closed_loop_gradient_through_the_kernel_route(monkeypatch):
-    """The tire gradient with every kernel of the nominal path (K1-K5) in the
-    forward and its plain VJP in the backward equals the plain route's."""
+    """The tire gradient with every kernel of the nominal path (K1-K5 and the
+    plant's RK4) in the forward and its plain VJP in the backward equals the
+    plain route's."""
     theta = torch.zeros(8, dtype=F64, requires_grad=True)
     (g_plain,) = torch.autograd.grad(_loss(scaled_tire_params(_tp0(), theta)), theta)
     _fake_kernels(monkeypatch)
     (g,) = torch.autograd.grad(_loss(scaled_tire_params(_tp0(), theta)), theta)
-    for name in ("linearize", "condense", "cholesky", "chol_solve", "ipm_iteration"):
+    for name in ("linearize", "condense", "cholesky", "chol_solve", "ipm_iteration", "plant"):
         assert build.LAUNCHES[name] > 0, name
     scale = float(g_plain.abs().max())
     assert float((g - g_plain).abs().max()) <= TOL_ROUTE * scale, (g, g_plain)
@@ -143,11 +157,15 @@ def _wrapper_case(name, rng):
         "cholesky_unblocked": (chol.cholesky_unblocked, (_spd(rng, bt, 12),)),
         "chol_solve_unblocked": (chol.chol_solve_unblocked, (L, r(bt, 12))),
     }
+    if name == "plant":  # the disturbed plant's step from lap states, the gradient in x, u, w
+        pl, x, u, w = plant_case(bt)
+        return (lambda x, u, w: pl.integrate(x, u, w, pl.dt, pl.n_sub)), (x, u, w)
     return cases[name]
 
 
 @pytest.mark.parametrize("name", ["condense", "condense_from", "condense_mxu", "cholesky",
-                                  "chol_solve", "cholesky_unblocked", "chol_solve_unblocked"])
+                                  "chol_solve", "cholesky_unblocked", "chol_solve_unblocked",
+                                  "plant"])
 def test_kernel_backward_is_the_plain_vjp(monkeypatch, name):
     """Each wrapper's kernel branch launches once and back-propagates the
     plain version's gradient in every input (a random cotangent)."""

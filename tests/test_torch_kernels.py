@@ -227,7 +227,7 @@ def test_wrappers_dispatch_by_tensor():
     assert all(v == 0 for v in build.LAUNCHES.values())
     assert set(build.LAUNCHES) == {"linearize", "condense", "condense_from", "cholesky",
                                    "chol_solve", "ipm_iteration", "condense_mxu",
-                                   "cholesky_unblocked", "chol_solve_unblocked"}
+                                   "cholesky_unblocked", "chol_solve_unblocked", "plant"}
 
 
 @pytest.mark.parametrize("nx,to_kernel", [(8, True), (16, True), (17, False), (88, False)])

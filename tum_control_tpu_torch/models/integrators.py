@@ -1,9 +1,10 @@
 """Fixed-step explicit RK4 (port of tum_control_tpu/models/integrators.py).
 
 Used for the OCP shooting step (3 substeps over Ts_MPC) and the plant
-(4 substeps over Ts). Works on any leading batch shape; the `_tree`
-versions take a state that is a nest of tensors (e.g. a tuple of one
-tensor per variable, models/vehicle_stm.py::pred_ode_tuple's form).
+(4 substeps over Ts; on the card one kernel, ops/kernels/plant.py). Works
+on any leading batch shape; the `_tree` versions take a state that is a
+nest of tensors (e.g. a tuple of one tensor per variable,
+models/vehicle_stm.py::pred_ode_tuple's form).
 """
 from __future__ import annotations
 
@@ -20,7 +21,13 @@ def rk4_step(f, x, u, dt):
 
 
 def rk4_multistep(f, x, u, dt, n_steps: int):
-    """n_steps RK4 sub-steps covering a total interval dt (zero-order-hold u)."""
+    """n_steps RK4 sub-steps covering a total interval dt (zero-order-hold u).
+    An `f` that carries its own integrator, `f.integrate(x, u, dt, n_steps)`
+    (the plant's kernel, ops/kernels/plant.py::PlantODE), is handed the
+    whole integration."""
+    fused = getattr(f, "integrate", None)
+    if fused is not None:
+        return fused(x, u, dt, n_steps)
     h = dt / n_steps
     for _ in range(n_steps):
         x = rk4_step(f, x, u, h)

@@ -33,7 +33,7 @@ NVCC_FLAGS = (
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"linearize": 0, "condense": 0, "condense_from": 0, "cholesky": 0, "chol_solve": 0,
             "ipm_iteration": 0, "condense_mxu": 0, "cholesky_unblocked": 0,
-            "chol_solve_unblocked": 0}
+            "chol_solve_unblocked": 0, "plant": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points of each library: argument types (every pointer and the
@@ -53,6 +53,7 @@ SIGNATURES = {
              "chol_solve_plan": [_I, _P]},
     "ipm_iter": {"ipm_iteration_f32": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
                  "ipm_iteration_plan": [_I, _I, _P]},
+    "plant": {"plant_f32": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P]},
 }
 
 _LIBS: dict = {}

@@ -125,6 +125,21 @@ def tire_table(vp, tp):
                        dim=1).to(ref.dtype).contiguous()
 
 
+def kernel_tires(vp, tp, dt: float, n_sub: int):
+    """What a kernel of this model takes of the tires `tp`: its parameter
+    block (kernel_params), the tensor-valued tire parameters (inputs of its
+    plain version's VJP) and their device table (tire_table; None for float
+    tires)."""
+    tires = tuple(v for v in tp if isinstance(v, torch.Tensor))
+    return kernel_params(vp, tp, dt, n_sub), tires, (tire_table(vp, tp) if tires else None)
+
+
+def with_tires(tp, tires):
+    """`tp` with its tensor-valued parameters replaced, in order, by `tires`."""
+    it = iter(tires)
+    return type(tp)(*(next(it) if isinstance(v, torch.Tensor) else v for v in tp))
+
+
 def linearize_cuda(XU, prm, n_sub: int, nx: int = 8, tires=None):
     """Launch csrc/linearize.cu on a contiguous CUDA float32 XU (B, N, 10);
     `tires` a tire_table of 1 or B rows (row b for scenario b), or None for
@@ -170,9 +185,7 @@ class LinearizeRollout:
     def set_tires(self, tp):
         """Replace the tires; no value is read back from the card."""
         self.tp = tp
-        self.prm = kernel_params(self.vp, tp, self.dt, self.n_sub)
-        self.tires = tuple(v for v in tp if isinstance(v, torch.Tensor))
-        self.table = tire_table(self.vp, tp) if self.tires else None
+        self.prm, self.tires, self.table = kernel_tires(self.vp, tp, self.dt, self.n_sub)
 
     def step(self, x, u):
         """The discrete step with the current tires (make_step)."""
@@ -180,9 +193,8 @@ class LinearizeRollout:
 
     def _plain(self, XU, *tires):
         """linearize_ref with the tensor-valued tire parameters `tires`."""
-        it = iter(tires)
-        tp = type(self.tp)(*(next(it) if isinstance(v, torch.Tensor) else v for v in self.tp))
-        return linearize_ref(XU, make_step(self.vp, tp, self.dt, self.n_sub), self.nx)
+        return linearize_ref(XU, make_step(self.vp, with_tires(self.tp, tires), self.dt,
+                                           self.n_sub), self.nx)
 
     def __call__(self, XU):
         if build.use_kernel(XU):

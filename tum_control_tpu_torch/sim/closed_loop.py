@@ -24,7 +24,7 @@ from typing import NamedTuple
 import torch
 
 from tum_control_tpu_torch.models.integrators import rk4_multistep
-from tum_control_tpu_torch.models.vehicle_stm import sim_ode, sim_ode_disturbed
+from tum_control_tpu_torch.ops.kernels.plant import Plant
 from tum_control_tpu_torch.sim.disturbances import TYPE_NONE, DisturbanceConfig, draw_disturbance
 from tum_control_tpu_torch.sim.estimator import estimate, init_estimator
 from tum_control_tpu_torch.track.planner import planner_emulator
@@ -98,6 +98,15 @@ class ClosedLoopSim:
         self.vp_sim, self.tp_sim = vp_sim, tp_sim
         self.dist_deriv, self.dist_se = dist_deriv, dist_se
 
+    @property
+    def tp_sim(self):
+        return self.plant.tp
+
+    @tp_sim.setter
+    def tp_sim(self, tp):
+        """New plant tires rebuild the plant's constants and tire table."""
+        self.plant = Plant(self.vp_sim, tp, self.Ts, PLANT_SUBSTEPS)
+
     # ------------------------------------------------------------------
     def set_tires(self, tp):
         """Replace the tires of the plant and the controller: floats, or
@@ -105,6 +114,12 @@ class ClosedLoopSim:
         parameters as one batch; tools/fit_tires_es.py)."""
         self.tp_sim = tp
         self.controller.set_tires(tp)
+
+    def integrate_plant(self, x, u, w=None):
+        """The plant over one step Ts from x (B, 7) under u (B, 2) = [a,
+        steering rate], disturbed by w (B, 7) where given: one call of
+        `rk4_multistep`, one kernel launch on the card."""
+        return rk4_multistep(self.plant.ode(w), x, u, self.Ts, PLANT_SUBSTEPS)
 
     def init_carry(self, x0_mpc, x0_sim, key=None) -> SimCarry:
         """x0_mpc (B, 8), x0_sim (B, 7); `key` a torch.Generator or an int seed."""
@@ -170,16 +185,13 @@ class ClosedLoopSim:
             w_deriv = w_se = zeros7
             pose_next = x_next8[:, :2]
         else:
-            f_nom = lambda x, u: sim_ode(x, u, self.vp_sim, self.tp_sim)
             with span("tc.plant"):
-                x_sim_next = rk4_multistep(f_nom, carry.x_sim, u_plant, self.Ts, PLANT_SUBSTEPS)
+                x_sim_next = self.integrate_plant(carry.x_sim, u_plant)
             if self.dist_deriv.kind != TYPE_NONE:
                 w_deriv = (w_deriv_play if self.playback
                            else draw_disturbance(self.dist_deriv, carry.key, B))
-                f_dist = lambda x, u: sim_ode_disturbed(x, u, w_deriv, self.vp_sim, self.tp_sim)
                 with span("tc.plant"):
-                    x_dist_next = rk4_multistep(f_dist, carry.x_sim, u_plant, self.Ts,
-                                                PLANT_SUBSTEPS)
+                    x_dist_next = self.integrate_plant(carry.x_sim, u_plant, w_deriv)
             else:
                 w_deriv = zeros7
                 x_dist_next = x_sim_next

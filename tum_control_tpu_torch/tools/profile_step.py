@@ -6,7 +6,8 @@ of tools/profile_step.py):
 
 Stages, each called on the same inputs: planner | build_qp (linearize,
 condense, assemble) | ipm+polish | solve (all of the RTI step) |
-plant+estimator (the plant's RK4 at a zero input and the estimator) | full
+plant+estimator (the loop's own plant integration, `ClosedLoopSim.
+integrate_plant`, at a zero input, and the estimator) | full
 step. Beside each stage's time per call on the host's clock
 (synchronized), it prints what one torch.profiler window of one call
 shows: the device kernels the stage launches, their device time and that
@@ -39,18 +40,14 @@ def parse_args(argv=None):
 
 def stages(s):
     """[(name, fn)]: each stage as a call on setup's inputs."""
-    from tum_control_tpu_torch.models.integrators import rk4_multistep
-    from tum_control_tpu_torch.models.vehicle_stm import sim_ode
     from tum_control_tpu_torch.ops.ipm import solve_soft_qp_ipm
-    from tum_control_tpu_torch.sim.closed_loop import PLANT_SUBSTEPS
     from tum_control_tpu_torch.sim.estimator import estimate
 
     sim, eng = s.sim, s.eng
     u_plant = torch.zeros_like(s.x0m[:, :2])   # [a, steering rate]
 
     def plant_est():
-        f = lambda x, u: sim_ode(x, u, sim.vp_sim, sim.tp_sim)
-        x7 = rk4_multistep(f, s.carry.x_sim, u_plant, sim.Ts, PLANT_SUBSTEPS)
+        x7 = sim.integrate_plant(s.carry.x_sim, u_plant)
         return estimate(s.carry.est_state, torch.cat([x7, u_plant[:, :1]], dim=1))[0]
 
     return [
