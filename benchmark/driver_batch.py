@@ -4,6 +4,22 @@ next step waits for its previous one), after `warmup_steps` steps that
 launch every kernel of the path once and let the allocator take its
 blocks.
 
+The window is a fixed count of closed-loop steps, the traffic's
+`window_steps`, or `--seconds` of wall time, whichever ends it first. Any
+two runs of one seed that reach `window_steps` attempt the same B x
+`window_steps` solves from the same scenarios, and the seeded sample
+(compare.Sampler) draws the same step indices, however fast the host
+issues them. So a failed-solve share of two versions of the program is
+taken over the same solves: a faster host path reaches no steps that the
+slower one does not. A run that reaches `--seconds` first says so on
+standard error and reports the steps it ran.
+
+  attempted     B x the steps of the window
+  failed        the window's solves with status != 0 or a non-finite
+                control; each is listed on standard error after the window
+                (its step, scenario, status and whether its control was
+                finite), the first MAX_LISTED of them
+
   device_solves_per_s  B x the steps of the profiled stretch over the
                 seconds in which the card ran an operation in it (the union
                 of the device operations' intervals, from the profiler's
@@ -32,10 +48,13 @@ from benchmark.compare import Sampler, carry_tensors, copy
 from benchmark.tracing import WRAPPED, Spans, installed, profile_window
 from benchmark.work import step_work
 
+MAX_LISTED = 20   # failed solves listed one by one on standard error
+
 
 def run(ctx):
     tr = ctx.cell.traffic
     B = int(tr["batch"])
+    S = int(tr["window_steps"])
     sim, carry, lap_points = program.build(ctx, B)
     zeros = torch.zeros_like(carry.x_sim)
     step = sim.step
@@ -52,7 +71,7 @@ def run(ctx):
     with installed(spans, sim.controller) if ctx.trace else contextlib.nullcontext():
         t0 = time.perf_counter()
         n = 0
-        while True:
+        while n < S:
             t = time.perf_counter()
             if t - t0 >= ctx.seconds:
                 break
@@ -93,7 +112,11 @@ def run(ctx):
     u = torch.stack([k[0] for k in kept], dim=1)
     st = torch.stack([k[1] for k in kept], dim=1)
     lat = torch.stack([k[2] for k in kept], dim=1).abs().double().cpu().numpy()
-    failed = int(((st != 0) | ~torch.isfinite(u).all(dim=-1)).sum())
+    bad = (st != 0) | ~torch.isfinite(u).all(dim=-1)
+    failed = int(bad.sum())
+    program.say(f"the window reached --seconds {ctx.seconds!r} first: {n} steps of window_steps "
+                f"{S}" if n < S else f"the window ended at window_steps {S}, {window_s!r} s "
+                f"of --seconds {ctx.seconds!r}")
     program.say(f"setup_s {setup_s!r}; window {window_s!r} s, {n} steps x {B} scenarios, "
                 f"{B * n / window_s!r} solves per wall second; host ms a step to issue: mean "
                 f"{1e3 * float(np.mean(issue))!r}")
@@ -109,6 +132,7 @@ def run(ctx):
     program.say(f"|lat_dev| p50 / p99 over the window: {float(np.percentile(lat, 50))!r} / "
                 f"{float(np.percentile(lat, 99))!r} m; solves with status != 0 or a non-finite "
                 f"control: {failed} of {B * n}")
+    list_failed(bad, st, u, int(tr["warmup_steps"]))
     samples = sampler.samples()
     del sim, carry, kept
     if ctx.device.type == "cuda":
@@ -116,3 +140,18 @@ def run(ctx):
     return program.Result(e2e=e2e,
                           attempted=B * n, failed=failed, samples=samples, sample_rows=B,
                           record=record, memory_peak_bytes=peak)
+
+
+def list_failed(bad, status, u, warmup: int):
+    """One line on standard error for each of the first MAX_LISTED failed
+    solves, in the order of the window's steps, then their count. `bad`
+    and `status` are (B, steps), `u` (B, steps, nu)."""
+    if not bool(bad.any()):
+        return
+    steps, rows = torch.nonzero(bad.T, as_tuple=True)
+    for i, b in zip(steps[:MAX_LISTED].tolist(), rows[:MAX_LISTED].tolist()):
+        program.say(f"failed solve: window step {i} (closed-loop step {warmup + i}), scenario "
+                    f"{b}, status {float(status[b, i])!r}, control finite "
+                    f"{bool(torch.isfinite(u[b, i]).all())}")
+    program.say(f"failed solves: {steps.numel()}, the first {min(steps.numel(), MAX_LISTED)} "
+                "listed")

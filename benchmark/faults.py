@@ -49,13 +49,18 @@ def _rows(x, y, keep):
 
 
 def _solve_with(sim, change):
-    solve = sim.controller.solve
+    """The controller's output changed where the closed loop takes it: from
+    `solve_with_extra` where the controller carries state (`init_extra`:
+    R2NMPC, WMPC), else from `solve`."""
+    ctrl = sim.controller
+    name = "solve_with_extra" if hasattr(ctrl, "init_extra") else "solve"
+    solve = getattr(ctrl, name)
 
     def broken(*args, **kwargs):
-        out, state = solve(*args, **kwargs)
-        return change(out), state
+        out, *rest = solve(*args, **kwargs)
+        return (change(out), *rest)
 
-    sim.controller.solve = broken
+    setattr(ctrl, name, broken)
     return sim.step
 
 

@@ -2,12 +2,12 @@
 with the step broken underneath the driver (benchmark/faults.py), the chip
 look skipped, comes out `correct` false, with the cells' own limits. The
 faults of the whole batch or half of it run at a batch of 4 (a window of
-1.5 s); those of one scenario at the cell's own batch of 128, where that
-scenario is under 1 % of the entries that a 99th percentile pools (a
-window of 6 s: three sampled steps or more). In a cell that draws
-disturbances, a plant that gets none (`dropped_draws`) at a batch of 4.
-The benchmark runs on one chip, so no exchange between chips can be left
-out."""
+1.5 s); those of one scenario at the cell's own batch (128; rollout16's
+16), where that scenario is under 1 % of the entries that a 99th
+percentile pools (a window of 6 s: three sampled steps or more). In a
+cell that draws disturbances, a plant that gets none (`dropped_draws`) at
+a batch of 4. The benchmark runs on one chip, so no exchange between chips
+can be left out."""
 import pytest
 import torch
 
@@ -47,6 +47,11 @@ ONE = [(w, f) for w in BATCH for f in ("one_control", "one_status", "one_state")
 DRAWN = [w for w in BATCH if R.cell_of(SPEC, w).cfg["sim"].get("simulate_disturbances")]
 
 
+def _batch(workload):
+    """The cell's own batch, as its traffic mix states it."""
+    return int(R.cell_of(SPEC, workload).traffic["batch"])
+
+
 @pytest.mark.parametrize("workload,fault", CASES, ids=[f"{w}-{f}" for w, f in CASES])
 def test_a_broken_step_is_not_correct(small_batch, workload, fault):
     with planted(fault):
@@ -58,7 +63,7 @@ def test_a_broken_step_is_not_correct(small_batch, workload, fault):
 def test_one_broken_scenario_of_the_full_batch_is_not_correct(workload, fault):
     with planted(fault):
         res = R.run_cell(workload, SEED, 6.0, False, device="cpu")
-    assert res["attempted"] >= 3 * 128
+    assert res["attempted"] >= 3 * _batch(workload)
     assert res["correct"] is False, res["compared"]
     assert res["compared"]["pairs_off"]["value"] > res["compared"]["pairs_off"]["limit"]
 
@@ -79,5 +84,5 @@ def test_the_sound_step_is_correct(small_batch):
 @pytest.mark.parametrize("workload", BATCH)
 def test_the_sound_step_of_the_full_batch_is_correct(workload):
     res = R.run_cell(workload, SEED, 6.0, False, device="cpu")
-    assert res["attempted"] >= 3 * 128
+    assert res["attempted"] >= 3 * _batch(workload)
     assert res["correct"] is True, res["compared"]

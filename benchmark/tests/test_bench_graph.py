@@ -67,16 +67,17 @@ def test_none_from_a_batch_record_and_without_the_counter(monkeypatch):
 
 def test_entry_follows_the_contract():
     """The entry under `per_layer` against the contract the other per-layer
-    metrics are held to in test_bench_spec.py; appended last."""
+    metrics are held to in test_bench_spec.py; found by its name, as later
+    entries follow it."""
     spec = R.load_spec()
     e2e = {m["name"]: m for m in spec["end_to_end"]}
-    m = spec["per_layer"][-1]
+    m = next(p for p in spec["per_layer"] if p["name"] == NAME)
     assert m == dict(name=NAME, unit="share", better="higher", source="program_counter",
                      layer="serving (deploy_rt.py, utils/rt_runtime.py)", moves="cycle_ms_p95",
                      workloads=["nominal.serve"])
     reader = R.metric_reader(NAME)
     assert (reader.UNIT, reader.LAYER, reader.MOVES) == (m["unit"], m["layer"], m["moves"])
-    assert m["layer"] in {p["layer"] for p in spec["per_layer"][:-1]}
+    assert m["layer"] in {p["layer"] for p in spec["per_layer"] if p["name"] != NAME}
     for w in m["workloads"]:
         assert w in e2e[m["moves"]].get("workloads", [w])
     assert [p["name"] for p in spec["per_layer"]].count(NAME) == 1
